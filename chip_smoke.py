@@ -15,15 +15,25 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    ``Router`` -- register, a record request, scale to zero, a single cold
    start, a group restore of two, warm requests -- with the logits held
    to each other and to the plain versions on the card;
-5. the launch counts of the main path, the kernel table, and the last
-   line ``{"ok": true, "device": {...}}``.
+5. decode paths through ``launch.steps``: full-width olmo-1b (bfloat16
+   and int8 KV cache) and zamba2-1.2b (bfloat16, and a float32 twin)
+   prefill a 4 x 1024 prompt and decode greedily, each step held to a
+   teacher-forced forward and to a run through the plain versions (the
+   bfloat16 zamba2 run excepted: see ``F32_ATOL``), and each kernel call
+   of a prefill and a decode step held to its plain version on the
+   model's own inputs;
+6. the launch counts of each path (counts set to 0 just before it, read
+   just after), the kernel table, and the last line
+   ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a result when no CUDA device is usable, or when the
 port's sources are not beside this file.
 """
 from __future__ import annotations
 
+import contextlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -43,6 +53,28 @@ FLASH_CASES = [                      # (B, S, H, KV, D, dtype)
     (1, 2048, 16, 16, 128, "bfloat16"),   # olmo-1b, a long prompt
 ]
 FLASH_ATOL = {"float32": 2e-5, "bfloat16": 2e-2}
+DECODE_CASES = [                     # (B, S, H, KV, D, dtype, kv_len or None = random)
+    (2, 1024, 8, 2, 64, "float32", None),    # the three shapes of tests/test_kernels.py
+    (1, 2048, 4, 4, 128, "float32", None),
+    (3, 512, 16, 2, 80, "float32", None),
+    (4, 1056, 16, 16, 128, "bfloat16", 1056),   # olmo-1b, the last decode step
+    (4, 1056, 32, 32, 64, "bfloat16", 1056),    # zamba2-1.2b, the last decode step
+]
+SSD_CASES = [                        # (Bz, L, H, P, N, chunk, x dtype)
+    (2, 256, 4, 64, 64, 64, "float32"),      # the three shapes of tests/test_kernels.py
+    (1, 512, 2, 128, 32, 128, "float32"),
+    (2, 128, 8, 32, 16, 32, "float32"),
+    (4, 1024, 64, 64, 64, 128, "bfloat16"),  # zamba2-1.2b prefill
+    (4, 1, 64, 64, 64, 1, "bfloat16"),       # zamba2-1.2b decode step
+]
+# float32 kernels: the tolerances of tests/test_kernels.py.  A bfloat16
+# output is a softmax average over up to 1056 random keys, far below 1 in
+# magnitude, so its bound is relative: both sides compute in float32 and
+# round once to bfloat16, and a different order of summation flips that
+# rounding by one ulp; four ulps at the output's largest magnitude.
+DECODE_ATOL = {"float32": 2e-5}
+KERNEL_ULPS = 4
+SSD_ATOL = 5e-4
 
 
 def emit(obj: dict) -> None:
@@ -63,6 +95,12 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def bf16_ulp(x) -> float:
+    """One bfloat16 ulp at the magnitude of the largest |x|."""
+    m = float(x.abs().max())
+    return 2.0 ** (math.floor(math.log2(m)) - 7) if m > 0 else 0.0
 
 
 def bound_ms(n_bytes: float, n_ops: float, dtype: str) -> tuple[float, str]:
@@ -162,7 +200,7 @@ def check_flash(B: int, S: int, H: int, KV: int, D: int, dtype: str) -> dict:
     import numpy as np
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention import flash_attention_ref, mha
+    from repro_torch.kernels.flash_attention import mha, mha_ref
     rng = np.random.default_rng(S * 1000 + H)
     tdt = getattr(torch, dtype)
 
@@ -172,8 +210,7 @@ def check_flash(B: int, S: int, H: int, KV: int, D: int, dtype: str) -> dict:
     q, k, v = r(B, S, H, D), r(B, S, KV, D), r(B, S, KV, D)
 
     def plain():
-        return flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
-                                   v.transpose(1, 2)).transpose(1, 2)
+        return mha_ref(q, k, v)
 
     def library():
         return F.scaled_dot_product_attention(
@@ -196,6 +233,88 @@ def check_flash(B: int, S: int, H: int, KV: int, D: int, dtype: str) -> dict:
             "bound_ms": b, "bound_by": by}
 
 
+def check_decode(B: int, S: int, H: int, KV: int, D: int, dtype: str,
+                 kv_len: int | None) -> dict:
+    """gqa_decode against its plain version (and SDPA as the yardstick)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import gqa_decode, gqa_decode_ref
+    rng = np.random.default_rng(S * 100 + H)
+    tdt = getattr(torch, dtype)
+
+    def r(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)
+                                ).to("cuda", tdt)
+    q, k, v = r(B, 1, H, D), r(B, S, KV, D), r(B, S, KV, D)
+    lens = (rng.integers(1, S, B) if kv_len is None else np.full(B, kv_len))
+    lens_d = torch.from_numpy(lens.astype(np.int32)).to("cuda")
+    G = H // KV
+
+    def plain():
+        return gqa_decode_ref(q, k, v, lens_d)
+    mask = (torch.arange(S, device="cuda")[None, :] < lens_d[:, None])[:, None, None, :]
+
+    def library():
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=mask, enable_gqa=H != KV)
+    out = gqa_decode(q, k, v, lens_d)
+    ref = plain()
+    torch.cuda.synchronize()
+    err = float((out.float() - ref.float()).abs().max())
+    atol = DECODE_ATOL.get(dtype) or KERNEL_ULPS * bf16_ulp(ref.float())
+    keys = int(lens.sum())               # the valid rows this data reads
+    isz = q.element_size()
+    n_bytes = 2 * q.numel() * isz + 4 * B + 2 * keys * KV * D * isz
+    b, by = bound_ms(n_bytes, 4 * G * D * KV * keys, dtype)
+    return {"kernel": "decode_attention", "shape": [B, S, H, KV, D],
+            "kv_len": lens.tolist(), "dtype": dtype, "max_abs_err": err,
+            "max_abs_out": float(ref.float().abs().max()), "atol": atol,
+            "ok": err <= atol,
+            "kernel_ms": cuda_ms(lambda: gqa_decode(q, k, v, lens_d), 50),
+            "plain_ms": cuda_ms(plain, 20), "library_ms": cuda_ms(library, 20),
+            "bound_ms": b, "bound_by": by}
+
+
+def ssd_operations(Bz: int, L: int, H: int, P: int, N: int, chunk: int) -> int:
+    """Operations the chunked scan needs on these shapes: per (b, chunk),
+    C B^T over the causal half once (B and C are shared by the heads), and
+    per head M x over the causal half, C h and the state update."""
+    Lc = min(chunk, L)
+    per_head = Lc * (Lc + 1) * P + 4 * Lc * N * P
+    return Bz * (-(-L // Lc)) * (H * per_head + Lc * (Lc + 1) * N)
+
+
+def check_ssd(Bz: int, L: int, H: int, P: int, N: int, chunk: int, xdt: str) -> dict:
+    """ssd_scan against its plain version (no single library call computes
+    it: library_ms is None)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.mamba2_scan import ssd_scan, ssd_scan_ref
+    rng = np.random.default_rng(L * 10 + H)
+
+    def r(*shape, scale=1.0):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32) * scale
+                                ).to("cuda")
+    x = r(Bz, L, H, P).to(getattr(torch, xdt))
+    dt, A = r(Bz, L, H, scale=0.1).abs(), -r(H).abs()
+    B, C, h0 = r(Bz, L, N, scale=0.3), r(Bz, L, N, scale=0.3), r(Bz, H, N, P, scale=0.1)
+    args = (x, dt, A, B, C, h0)
+    y, hT = ssd_scan(*args, chunk=chunk)
+    ry, rhT = ssd_scan_ref(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    err = max(float((y - ry).abs().max()), float((hT - rhT).abs().max()))
+    n_bytes = (x.numel() * x.element_size() + 4 * (dt.numel() + A.numel() + B.numel()
+               + C.numel() + 2 * h0.numel() + y.numel()))
+    b, by = bound_ms(n_bytes, ssd_operations(Bz, L, H, P, N, chunk), "float32")
+    return {"kernel": "ssd_scan", "shape": [Bz, L, H, P, N], "chunk": chunk,
+            "x_dtype": xdt, "max_abs_err": err, "atol": SSD_ATOL, "ok": err <= SSD_ATOL,
+            "kernel_ms": cuda_ms(lambda: ssd_scan(*args, chunk=chunk), 20),
+            "plain_ms": cuda_ms(lambda: ssd_scan_ref(*args, chunk=chunk), 5),
+            "library_ms": None, "bound_ms": b, "bound_by": by}
+
+
 def phase_kernel_checks(ws_pages: int) -> dict:
     """Each kernel against its plain version; returns the main-path rows."""
     rows = {}
@@ -216,6 +335,17 @@ def phase_kernel_checks(ws_pages: int) -> dict:
                                  f"{res['max_abs_err']} > {res['atol']}")
         if case[:5] == (1, 64, 16, 16, 128):
             rows["flash_attention"] = res
+    for fn, cases, name, row_case in (
+            (check_decode, DECODE_CASES, "decode_attention", DECODE_CASES[3]),
+            (check_ssd, SSD_CASES, "ssd_scan", SSD_CASES[3])):
+        for case in cases:
+            res = fn(*case)
+            emit({"phase": "kernel_check", **res})
+            if not res["ok"]:
+                raise AssertionError(f"{name} {case}: max abs err "
+                                     f"{res['max_abs_err']} > {res['atol']}")
+            if case == row_case:
+                rows[name] = res
     return rows
 
 
@@ -257,13 +387,6 @@ def expected_ws_pages(cfg, batch: dict) -> int:
     return len(pages)
 
 
-def plain_attention(q, k, v):
-    """The flash kernel's plain version, in the model's (B, S, H, D) layout."""
-    from repro_torch.kernels.flash_attention import flash_attention_ref
-    return flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
-                               v.transpose(1, 2)).transpose(1, 2)
-
-
 def split(rep) -> dict:
     """The §4.2 latency split of one request's report."""
     return {"load_vmm_s": rep.load_vmm_s, "connection_s": rep.connection_s,
@@ -286,10 +409,11 @@ def host_writeback() -> dict:
     return out
 
 
-def profile_forward(fn, iters: int = 5) -> dict:
+def profile_forward(fn, iters: int = 5, kernels: tuple = ()) -> dict:
     """Host milliseconds of one synchronised call, and the device's busy
     milliseconds in one call from torch.profiler (None when the profiler
-    sees no device time)."""
+    sees no device time), with the device milliseconds of the kernels
+    whose names contain each of ``kernels``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -305,10 +429,15 @@ def profile_forward(fn, iters: int = 5) -> dict:
     events = prof.key_averages()
     busy_ms = sum(getattr(e, "self_device_time_total", 0) for e in events) / 1e3
     top = sorted(events, key=lambda e: -getattr(e, "self_device_time_total", 0))[:5]
-    return {"calls": iters + 2, "wall_ms": wall_ms, "device_busy_ms": busy_ms or None,
-            "device_idle_share": 1 - busy_ms / wall_ms if busy_ms else None,
-            "top_device_ms": {e.key[:60]: getattr(e, "self_device_time_total", 0) / 1e3
-                              for e in top}}
+    out = {"calls": iters + 2, "wall_ms": wall_ms, "device_busy_ms": busy_ms or None,
+           "device_idle_share": 1 - busy_ms / wall_ms if busy_ms else None,
+           "top_device_ms": {e.key[:60]: getattr(e, "self_device_time_total", 0) / 1e3
+                             for e in top}}
+    if kernels:
+        out["kernel_device_ms"] = {
+            k: sum(getattr(e, "self_device_time_total", 0) for e in events
+                   if k in e.key) / 1e3 for k in kernels}
+    return out
 
 
 def check_logits(label: str, logits, shape) -> None:
@@ -377,7 +506,7 @@ def run_main_path(cfg, device: str, store: str, batch: dict, t_start: float) -> 
                 raise AssertionError(f"group member {i} logits != single-cold logits")
 
         params = LazyParams(cfg, group[0].monitor.arena, device=device).tree()
-        cold_plain = forward(cfg, params, batch, attn=plain_attention)
+        cold_plain = forward(cfg, params, batch, plain=True)
         del params
         cold_err = float((cold.float() - cold_plain.float()).abs().max())
 
@@ -386,7 +515,7 @@ def run_main_path(cfg, device: str, store: str, batch: dict, t_start: float) -> 
         warm = [request(f"warm_{i}")[0] for i in range(3)]
         prof = profile_forward(lambda: forward(cfg, group[0]._warm_params, batch))
         line(step="warm_forward_profile", **prof)
-        warm_plain = forward(cfg, group[0]._warm_params, batch, attn=plain_attention)
+        warm_plain = forward(cfg, group[0]._warm_params, batch, plain=True)
         warm_err = max(float((w.float() - warm_plain.float()).abs().max()) for w in warm)
         if any(not torch.equal(w, warm[0]) for w in warm):
             raise AssertionError("warm requests disagree")
@@ -456,15 +585,282 @@ def phase_fuse_engines(base: str) -> dict:
     return res
 
 
+# -- phase 5: decode paths ---------------------------------------------------
+
+DEVICE = "cuda"
+DECODE_BATCH, PROMPT, DECODE_STEPS, INT8_STEPS, F32_STEPS = 4, 1024, 32, 8, 8
+# Logits through the kernels vs through the plain versions: four bfloat16
+# ulps at the logits' largest magnitude, LOGIT_ATOL's reason made exact
+# for logits that may pass 8 over 4 x 1056 positions.  Decode (and
+# prefill) logits vs the teacher-forced forward over the same tokens: the
+# step's attention runs the decode kernel over the cache where the forward
+# runs flash attention over the sequence, the Mamba state is carried by
+# one-step scans where the forward scans chunks, and the matmuls see other
+# shapes; each side is within four ulps of an exact computation, so eight.
+PLAIN_ULPS, TEACHER_ULPS = 4, 8
+# An int8 cache adds its grid: each K/V element moves by up to amax/254 of
+# its (token, head) row.  On the CPU at 16 layers (d_model 256) it moved
+# decode logits by 1.1% (olmo-1b) and 2.2% (zamba2-1.2b) of their largest
+# magnitude; twice the larger.
+INT8_REL = 0.04
+# zamba2-1.2b with random weights amplifies a one-ulp difference anywhere
+# in its 38 Mamba2 layers far past any rounding bound in bfloat16:
+# tests/test_torch_hybrid.py::test_zamba2_bf16_amplifies_a_rounding_nudge
+# scales every SSD output by 1 + 1e-6 at d_model 512 and 38 layers, which
+# moves bfloat16 logits by more than PLAIN_ULPS ulps and float32 ones by
+# under 1e-3 of their magnitude.  So its bfloat16 run is held to its launch
+# counts, finite logits and each kernel call against its plain version on
+# the run's own inputs (``kernels_held_to_plain``), and a float32 twin
+# (params and caches in float32) is held to the teacher-forced forward and
+# to the plain versions within F32_ATOL: ten times the larger of the
+# H100's readings (0.00077 against the forward, 0.00018 against plain).
+F32_ATOL = 0.01
+# Kernel calls held to their plain versions on the model's inputs:
+# bfloat16 outputs within KERNEL_ULPS ulps at their largest magnitude,
+# float32 ones within the kernel checks' tolerances, scaled by that
+# magnitude where it passes 1.
+F32_KERNEL_ATOL = {"flash_attention": FLASH_ATOL["float32"],
+                   "decode_attention": DECODE_ATOL["float32"], "ssd_scan": SSD_ATOL}
+
+
+def attention_layers(cfg) -> int:
+    return cfg.n_layers // cfg.attn_every if cfg.family == "hybrid" else cfg.n_layers
+
+
+def mamba_layers(cfg) -> int:
+    return cfg.n_layers if cfg.family == "hybrid" else 0
+
+
+@contextlib.contextmanager
+def kernels_held_to_plain():
+    """Within the block, each call the models make to B3, B4 or B6 also
+    runs the kernel's plain version on the same inputs (before the caller
+    writes any state in place).  Yields ``{kernel: {"calls", "max_abs_err",
+    "worst_err_over_atol"}}``, filled as the calls come."""
+    import torch
+    from repro_torch.kernels.decode_attention import gqa_decode_ref
+    from repro_torch.kernels.flash_attention import mha_ref
+    from repro_torch.kernels.mamba2_scan import ssd_scan_ref
+    from repro_torch.models import mamba2
+    from repro_torch.nn import layers
+    seen: dict[str, dict] = {}
+    sites = [(layers, "mha", mha_ref, "flash_attention"),
+             (layers, "gqa_decode", gqa_decode_ref, "decode_attention"),
+             (mamba2, "ssd_scan", ssd_scan_ref, "ssd_scan")]
+
+    def held(kernel, plain, name):
+        def call(*args, **kw):
+            out = kernel(*args, **kw)
+            want = plain(*args, **kw)
+            rec = seen.setdefault(name, {"calls": 0, "max_abs_err": 0.0,
+                                         "worst_err_over_atol": 0.0})
+            rec["calls"] += 1
+            pairs = zip(out, want) if isinstance(out, tuple) else [(out, want)]
+            for o, w in pairs:
+                w = w.float()
+                err = float((o.float() - w).abs().max())
+                atol = (KERNEL_ULPS * bf16_ulp(w) if o.dtype == torch.bfloat16 else
+                        F32_KERNEL_ATOL[name] * max(1.0, float(w.abs().max())))
+                rec["max_abs_err"] = max(rec["max_abs_err"], err)
+                rec["worst_err_over_atol"] = max(rec["worst_err_over_atol"],
+                                                 err / atol if atol else float(err > 0))
+            return out
+        return call
+    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _, _ in sites]
+    for mod, attr, plain, name in sites:
+        setattr(mod, attr, held(getattr(mod, attr), plain, name))
+    try:
+        yield seen
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+
+
+def float32_tree(tree):
+    """``tree`` with every floating tensor in float32 (int8 stays)."""
+    if isinstance(tree, dict):
+        return {k: float32_tree(v) for k, v in tree.items()}
+    return tree.float() if tree.is_floating_point() else tree
+
+
+def generate(cfg, params, prompt, n_steps: int, *, plain: bool = False,
+             forced=None, float32: bool = False) -> dict:
+    """Prefill ``prompt`` into a fresh cache, then ``n_steps`` decode steps:
+    greedy, or fed ``forced`` (B, n_steps) tokens.  Returns each step's
+    logits (prefill first), the tokens fed, seconds, and the cache."""
+    import torch
+    from repro_torch.launch import steps
+    B = prompt.shape[0]
+    cache = steps.init_cache(cfg, B, prompt.shape[1] + n_steps, DEVICE)
+    if float32:
+        cache = float32_tree(cache)
+    prefill = steps.build_prefill_step(cfg)
+    decode = steps.build_decode_step(cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, {"tokens": prompt}, cache, plain=plain)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    out, fed = [logits[:, -1].float()], []
+    t0 = time.perf_counter()
+    for i in range(n_steps):
+        tok = (logits[:, -1].argmax(-1, keepdim=True) if forced is None
+               else forced[:, i:i + 1])
+        fed.append(tok)
+        logits, cache = decode(params, cache, {"tokens": tok}, prompt.shape[1] + i,
+                               plain=plain)
+        out.append(logits[:, -1].float())
+    torch.cuda.synchronize()
+    decode_s = (time.perf_counter() - t0) / max(n_steps, 1)
+    return {"logits": torch.stack(out, 1), "fed": torch.cat(fed, 1),
+            "prefill_s": prefill_s, "decode_step_s": decode_s, "cache": cache}
+
+
+def run_decode_path(label: str, cfg, params, n_steps: int, t_start: float, *,
+                    float32: bool = False, held: bool = True) -> dict:
+    """One decode path: the kernel run (its launches counted), the teacher-
+    forced forward, and the run through the plain versions on the same
+    tokens.  ``float32`` casts params and cache to float32; ``held`` holds
+    the logits to the forward and the plain run.  Raises on any failed
+    check; returns the emitted line."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import steps
+    rng = np.random.default_rng(SEED)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (DECODE_BATCH, PROMPT),
+                                           dtype=np.int32)).to(DEVICE)
+    if float32:
+        params = float32_tree(params)
+    reset_launches()
+    run = generate(cfg, params, prompt, n_steps, float32=float32)
+    tokens = torch.cat([prompt, run["fed"].to(prompt.dtype)], 1)
+    t0 = time.perf_counter()
+    full = steps.build_forward(cfg)(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    forward_s = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    # one more decode step of the last token and more prefills, traced
+    # outside the count: they rewrite the same cache rows (Mamba states move
+    # on, unused after)
+    cache, decode = run.pop("cache"), steps.build_decode_step(cfg)
+    last = {"tokens": run["fed"][:, -1:]}
+    step_profile = profile_forward(
+        lambda: decode(params, cache, last, PROMPT + n_steps - 1),
+        kernels=("decode_split", "decode_combine", "ssd_chunks"))
+    prefill_profile = profile_forward(
+        lambda: steps.build_prefill_step(cfg)(params, {"tokens": prompt}, cache),
+        iters=2, kernels=("flash_fwd", "ssd_chunks"))
+    del cache
+    # one prefill and one decode step more, each kernel call held to its
+    # plain version on the same inputs (outside the count)
+    with kernels_held_to_plain() as per_call:
+        generate(cfg, params, prompt, 1, forced=run["fed"], float32=float32)
+    want_calls = {"flash_attention": attention_layers(cfg),
+                  "decode_attention": attention_layers(cfg),
+                  "ssd_scan": 2 * mamba_layers(cfg)}
+    calls = {k: n for k, n in want_calls.items() if n}
+    if {k: r["calls"] for k, r in per_call.items()} != calls:
+        raise AssertionError(f"{label}: held kernel calls {per_call}, want {calls}")
+    want = {"flash_attention": attention_layers(cfg) * 2,          # prefill + forward
+            "decode_attention": attention_layers(cfg) * n_steps,
+            "ssd_scan": mamba_layers(cfg) * (1 + n_steps + 1),    # prefill, steps, forward
+            "gather_pages": 0, "scatter_pages": 0}
+    if launches != want:
+        raise AssertionError(f"{label}: launches {launches}, want {want}")
+    logits = run["logits"]                                     # (B, 1 + steps, vocab)
+    shape = (DECODE_BATCH, 1 + n_steps, cfg.vocab)
+    check_logits(label, logits, shape)
+    teacher = full[:, PROMPT - 1:PROMPT + n_steps].float()
+    teacher_err = float((logits - teacher).abs().max())
+    atol = TEACHER_ULPS * bf16_ulp(teacher)
+    if cfg.kv_cache_dtype == "int8":
+        atol += INT8_REL * float(teacher.abs().max())
+    del full, teacher
+    plain = generate(cfg, params, prompt, n_steps, plain=True, forced=run["fed"],
+                     float32=float32)
+    del plain["cache"]
+    plain_err = float((logits - plain["logits"]).abs().max())
+    plain_atol = PLAIN_ULPS * bf16_ulp(plain["logits"])
+    if float32:
+        atol = plain_atol = F32_ATOL
+    if not held:
+        atol = plain_atol = None
+    res = {"phase": "decode_path", "path": label, "t": time.perf_counter() - t_start,
+           "function": cfg.name, "kv_cache_dtype": cfg.kv_cache_dtype,
+           "dtype": "float32" if float32 else cfg.dtype,
+           "batch": DECODE_BATCH, "prompt": PROMPT, "decode_steps": n_steps,
+           "prefill_s": run["prefill_s"], "decode_step_s": run["decode_step_s"],
+           "forward_s": forward_s, "plain_prefill_s": plain["prefill_s"],
+           "plain_decode_step_s": plain["decode_step_s"],
+           "teacher_forced_max_abs": teacher_err, "teacher_atol": atol,
+           "kernel_vs_plain_max_abs": plain_err, "plain_atol": plain_atol,
+           "max_abs_logit": float(logits.abs().max()),
+           "logits_finite": True, "launches": launches,
+           "kernel_calls_vs_plain": per_call,
+           "decode_step_profile": step_profile, "prefill_profile": prefill_profile}
+    emit(res)
+    if held and (teacher_err > atol or plain_err > plain_atol):
+        raise AssertionError(f"{label}: teacher-forced err {teacher_err} (atol {atol}), "
+                             f"kernel vs plain {plain_err} (atol {plain_atol})")
+    off = {k: r for k, r in per_call.items() if r["worst_err_over_atol"] > 1}
+    if off:
+        raise AssertionError(f"{label}: kernel calls differ from their plain "
+                             f"versions on the model's inputs: {off}")
+    return res
+
+
+def phase_decode_paths(t_start: float) -> dict:
+    """olmo-1b with a bfloat16 and an int8 KV cache, then zamba2-1.2b in
+    bfloat16 and its float32 twin, at full width and depth from numpy seed
+    0.  Returns launches summed over the paths."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch import steps
+    total: dict[str, int] = {}
+    # (label, KV cache dtype, steps, float32 twin, logits held)
+    for function, paths in (
+            ("olmo-1b", (("olmo-1b", "bfloat16", DECODE_STEPS, False, True),
+                         ("olmo-1b/int8", "int8", INT8_STEPS, False, True))),
+            ("zamba2-1.2b", (("zamba2-1.2b", "bfloat16", DECODE_STEPS, False, False),
+                             ("zamba2-1.2b/f32", "bfloat16", F32_STEPS, True, True)))):
+        t0 = time.perf_counter()
+        params = steps.init_params(ARCHS[function], SEED, DEVICE)
+        torch.cuda.synchronize()
+        emit({"phase": "decode_path", "function": function, "step": "init_params",
+              "seconds": time.perf_counter() - t0,
+              "params": sum(t.numel() for t in _leaves(params))})
+        for label, kvd, n_steps, float32, held in paths:
+            cfg = dataclasses.replace(ARCHS[function], kv_cache_dtype=kvd)
+            res = run_decode_path(label, cfg, params, n_steps, t_start,
+                                  float32=float32, held=held)
+            for k, n in res["launches"].items():
+                total[k] = total.get(k, 0) + n
+        del params
+        torch.cuda.empty_cache()
+    return total
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
 def kernel_table(rows: dict, launches: dict) -> list[dict]:
-    src = "src/repro_torch/csrc/"
-    meta = {
-        "gather_pages": (src + "page_gather.cu",
-                         "src/repro/kernels/page_gather/kernel.py:27"),
-        "scatter_pages": (src + "page_gather.cu",
-                          "src/repro/kernels/page_gather/kernel.py:56"),
+    src, tpu = "src/repro_torch/csrc/", "src/repro/kernels/"
+    meta = {                         # the port's source, the TPU kernel's pallas_call
+        "gather_pages": (src + "page_gather.cu", tpu + "page_gather/kernel.py:43"),
+        "scatter_pages": (src + "page_gather.cu", tpu + "page_gather/kernel.py:75"),
         "flash_attention": (src + "flash_attention.cu",
-                            "src/repro/kernels/flash_attention/kernel.py:59"),
+                            tpu + "flash_attention/kernel.py:73"),
+        "decode_attention": (src + "decode_attention.cu",
+                             tpu + "decode_attention/kernel.py:87"),
+        "ssd_scan": (src + "mamba2_scan.cu", tpu + "mamba2_scan/kernel.py:71"),
     }
     out = []
     for name, (source, replaces) in meta.items():
@@ -515,11 +911,15 @@ def main() -> int:
             raise AssertionError(f"flash_attention launched "
                                  f"{launches['flash_attention']} times, want "
                                  f"{cfg.n_layers} x {n_forwards} forwards")
-        emit({"phase": "launch_counts", "kernel_launches": launches,
+        emit({"phase": "launch_counts", "path": "serving", "kernel_launches": launches,
               "forwards": n_forwards})
         phase_fuse_engines(main_res["base"])
     finally:
         shutil.rmtree(store, ignore_errors=True)
+    torch.cuda.empty_cache()
+    decode_launches = phase_decode_paths(t_start)
+    emit({"phase": "launch_counts", "path": "decode", "kernel_launches": decode_launches})
+    launches = {k: n + decode_launches.get(k, 0) for k, n in launches.items()}
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(env["nvidia_smi"], flush=True)
     emit({"kernels": kernel_table(rows, launches)})

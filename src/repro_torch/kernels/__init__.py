@@ -6,5 +6,7 @@ Each kernel has the JAX package's three-part form: the kernel itself
 kernel on CUDA tensors, and the plain version (``<name>/ref.py``).
 """
 from .build import LAUNCHES, KernelError, build_all, reset_launches
+from .decode_attention.ops import gqa_decode
 from .flash_attention.ops import mha
+from .mamba2_scan.ops import ssd_scan
 from .page_gather.ops import gather_pages, scatter_pages

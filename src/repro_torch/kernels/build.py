@@ -41,6 +41,13 @@ SIGNATURES: dict[str, dict[str, list]] = {
         "flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             ctypes.c_float, _I, _P],
     },
+    "decode_attention": {
+        "decode_attention": [_P] * 7 + [_I] * 7 + [ctypes.c_float] + [_I64] * 8
+                            + [_P],
+    },
+    "mamba2_scan": {
+        "ssd_scan": [_P] * 8 + [_I] * 6 + [_I64] * 3 + [_I, _P],
+    },
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -52,7 +59,8 @@ last_build_seconds: float | None = None
 #: kernel name -> launches so far.  Each wrapper adds one exactly where it
 #: launches its kernel, so a run can show it went through the kernel.
 LAUNCHES: dict[str, int] = {"gather_pages": 0, "scatter_pages": 0,
-                            "flash_attention": 0}
+                            "flash_attention": 0, "decode_attention": 0,
+                            "ssd_scan": 0}
 _COUNT_LOCK = threading.Lock()
 
 

@@ -1,2 +1,2 @@
 from .ops import mha
-from .ref import flash_attention_ref
+from .ref import flash_attention_ref, mha_ref

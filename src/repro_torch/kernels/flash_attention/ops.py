@@ -11,7 +11,7 @@ import math
 import torch
 
 from ..build import check, count_launch, library
-from .ref import flash_attention_ref
+from .ref import mha_ref
 
 HEAD_DIMS = (32, 64, 80, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -36,9 +36,7 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise TypeError(f"mha: mixed dtypes {q.dtype}, {k.dtype}, {v.dtype}")
     devs = {q.device, k.device, v.device}
     if devs == {torch.device("cpu")}:
-        out = flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
-                                  v.transpose(1, 2), causal=causal)
-        return out.transpose(1, 2).contiguous()
+        return mha_ref(q, k, v, causal=causal)
     if len(devs) != 1 or q.device.type != "cuda":
         raise ValueError(f"mha: tensors must share one CUDA device, got {devs}")
     if q.dtype not in _DTYPES:

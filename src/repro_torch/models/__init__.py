@@ -1,21 +1,29 @@
 """Model-family registry.
 
-A family module exposes ``param_specs(cfg)`` (the spec tree) and
-``forward(cfg, params, batch, *, attn=None)`` (logits).  This slice ports
-the dense family only; the others raise and name the ROADMAP item (§A)
-that ports them.
+A family module exposes:
+
+- ``param_specs(cfg)``: the parameter spec tree;
+- ``forward(cfg, params, batch, *, plain=False)``: logits (B, S, vocab);
+- ``cache_specs(cfg, batch, max_len)``: the decode cache's spec tree;
+- ``prefill(cfg, params, batch, cache, *, plain=False)``: fills the cache
+  in place from a prompt, returns (last-position logits, cache);
+- ``decode(cfg, params, cache, batch, pos, *, plain=False)``: one token at
+  position ``pos``, returns (logits, cache).
+
+``plain`` runs the kernels' plain versions instead of the kernels.  The
+dense and hybrid (Mamba2/Zamba2) families are ported; the others raise and
+name the ROADMAP item (§A) that ports them.
 """
 from __future__ import annotations
 
 from ..configs.base import ModelConfig
-from . import transformer
+from . import transformer, zamba
 
-FAMILIES = {"dense": transformer}
+FAMILIES = {"dense": transformer, "hybrid": zamba}
 
 _NOT_PORTED = {
     "moe": "A7 (MoE)",
     "vlm": "A8 (the VLM path)",
-    "hybrid": "A8 (Mamba2/Zamba)",
     "rwkv": "A8 (RWKV6)",
     "encdec": "A8 (encoder-decoder)",
 }

@@ -2,7 +2,12 @@
 
 Parameters keep the JAX package's stacked storage: every layer leaf has a
 leading "layers" axis, because the snapshot's arena layout depends on it.
-The forward loops over that axis where the JAX package uses ``lax.scan``.
+So does the KV cache: ``cache["kv"]["k"]`` is (layers, B, max_len, KV, D).
+The forward, prefill and decode loop over that axis where the JAX package
+uses ``lax.scan``; prefill and decode write the cache in place.
+
+``plain=True`` runs every kernel's plain version in its stead (see
+:mod:`repro_torch.nn.layers`).
 """
 from __future__ import annotations
 
@@ -10,7 +15,6 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..nn import layers as nn
-from ..nn.layers import AttentionFn
 from ..nn.spec import TensorSpec, map_leaves
 
 # ---------------------------------------------------------------------------
@@ -52,25 +56,57 @@ def param_specs(cfg: ModelConfig) -> dict:
     return s
 
 
+def cache_specs(cfg: ModelConfig, batch: int, max_len: int) -> dict:
+    hd = cfg.resolved_head_dim
+    return {
+        "kv": stack_specs(
+            nn.attention_cache_spec(batch, max_len, cfg.n_kv_heads, hd,
+                                    nn.kv_cache_dtype(cfg)),
+            cfg.n_layers,
+        )
+    }
+
+
 # ---------------------------------------------------------------------------
 # Forward
 # ---------------------------------------------------------------------------
 
 
-def _layer_fwd(cfg: ModelConfig, lp: dict, x: torch.Tensor,
-               attn: AttentionFn | None) -> torch.Tensor:
+def _layer_fwd(cfg: ModelConfig, lp: dict, x: torch.Tensor, cache: dict | None,
+               cache_pos: int | None, plain: bool) -> torch.Tensor:
     h = nn.apply_norm(cfg.norm, lp.get("ln1"), x)
-    x = x + nn.apply_attention(lp["attn"], h, rope_theta=cfg.rope_theta,
-                               chunk=cfg.attn_chunk, attn=attn)
+    h, _ = nn.apply_attention(lp["attn"], h, rope_theta=cfg.rope_theta,
+                              cache=cache, cache_pos=cache_pos,
+                              chunk=cfg.attn_chunk, plain=plain)
+    x = x + h
     h = nn.apply_norm(cfg.norm, lp.get("ln2"), x)
     return x + nn.apply_mlp(lp["mlp"], h)
 
 
-def _layer(tree, i: int):
-    """Layer ``i`` of a stacked (leading 'layers' axis) param tree."""
+def layer_slice(tree, i: int):
+    """Layer ``i`` of a stacked (leading 'layers' axis) tree: views, so a
+    write into a cache slice lands in the stacked cache."""
     if isinstance(tree, dict):
-        return {k: _layer(v, i) for k, v in tree.items()}
+        return {k: layer_slice(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+def _run_layers(cfg: ModelConfig, params: dict, x: torch.Tensor,
+                cache: dict | None, cache_pos: int | None,
+                plain: bool) -> torch.Tensor:
+    for i in range(cfg.n_layers):
+        lc = None if cache is None else layer_slice(cache["kv"], i)
+        x = _layer_fwd(cfg, layer_slice(params["layers"], i), x, lc, cache_pos,
+                       plain)
+    return x
+
+
+def embed_tokens(params: dict, batch: dict) -> torch.Tensor:
+    """``batch["tokens"]`` (B, S) integers, moved to the params' device,
+    through the embedding."""
+    table = params["embed"]["table"]
+    tokens = torch.as_tensor(batch["tokens"], device=table.device).long()
+    return nn.apply_embedding(params["embed"], tokens)
 
 
 def _logits(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
@@ -81,16 +117,24 @@ def _logits(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
 
 
 def forward(cfg: ModelConfig, params: dict, batch: dict, *,
-            attn: AttentionFn | None = None) -> torch.Tensor:
-    """Full scoring forward -> logits (B, S, vocab).
-
-    ``batch["tokens"]`` is an integer array (B, S); it is moved to the
-    params' device.  ``attn`` overrides the attention function of every
-    layer (see :func:`~repro_torch.nn.layers.apply_attention`).
-    """
-    table = params["embed"]["table"]
-    tokens = torch.as_tensor(batch["tokens"], device=table.device).long()
-    x = nn.apply_embedding(params["embed"], tokens)
-    for i in range(cfg.n_layers):
-        x = _layer_fwd(cfg, _layer(params["layers"], i), x, attn)
+            plain: bool = False) -> torch.Tensor:
+    """Full scoring forward -> logits (B, S, vocab)."""
+    x = _run_layers(cfg, params, embed_tokens(params, batch), None, None, plain)
     return _logits(cfg, params, x)
+
+
+def prefill(cfg: ModelConfig, params: dict, batch: dict, cache: dict, *,
+            plain: bool = False):
+    """Populate the KV cache from a full prompt (in place); returns the
+    last position's logits (B, 1, vocab) and the cache."""
+    x = _run_layers(cfg, params, embed_tokens(params, batch), cache, 0, plain)
+    return _logits(cfg, params, x[:, -1:, :]), cache
+
+
+def decode(cfg: ModelConfig, params: dict, cache: dict, batch: dict, pos: int, *,
+           plain: bool = False):
+    """One-token decode step at position ``pos`` (the cache is valid up to
+    ``pos``, and this step's K/V are written there in place); returns
+    logits (B, 1, vocab) and the cache."""
+    x = _run_layers(cfg, params, embed_tokens(params, batch), cache, pos, plain)
+    return _logits(cfg, params, x), cache

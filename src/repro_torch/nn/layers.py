@@ -1,25 +1,31 @@
-"""Dense-model building blocks, in PyTorch.
+"""Model building blocks, in PyTorch.
 
-The dense subset of ``repro.nn.layers``: norms, embedding, rotary position
-embedding, GQA self-attention without a KV cache, the SwiGLU MLP and the
-LM head.  Each block is a ``<block>_spec`` giving its parameter spec tree
-and an ``apply_<block>`` on tensors.  The casting points are the JAX
-package's: norms and the attention math run in float32 and cast back, and
-each block returns its input's dtype.
+The subset of ``repro.nn.layers`` that the dense and hybrid families use:
+norms, embedding, rotary position embedding, GQA self-attention with an
+optional KV cache (bfloat16 or int8), the SwiGLU MLP and the LM head.
+Each block is a ``<block>_spec`` giving its parameter spec tree and an
+``apply_<block>`` on tensors.  The casting points are the JAX package's:
+norms and the attention math run in float32 and cast back, and each block
+returns its input's dtype.
 
-On a CUDA tensor, attention runs the flash-attention kernel
-(``kernels.flash_attention``); on a CPU tensor it runs
-:func:`chunked_attention`, the same causal online softmax.
+Attention over a whole sequence (a forward, or a prefill) runs the
+flash-attention kernel on a CUDA tensor and :func:`chunked_attention` on a
+CPU one.  A decode step (one token over the cache) runs the
+decode-attention kernel on a CUDA tensor and :func:`chunked_attention`
+with a single chunk on a CPU one.  ``plain=True`` runs the kernels' plain
+versions instead, on either device: that is how a run on the card is held
+to the plain versions.
 """
 from __future__ import annotations
 
 import math
-from typing import Callable
+from typing import Any
 
 import torch
 import torch.nn.functional as F
 
-from ..kernels.flash_attention import mha
+from ..kernels.decode_attention import gqa_decode, gqa_decode_ref
+from ..kernels.flash_attention import mha, mha_ref
 from .spec import tensor
 
 # ---------------------------------------------------------------------------
@@ -142,13 +148,14 @@ def _qkv(p: dict, x: torch.Tensor):
 
 
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                      causal: bool, chunk: int = 1024) -> torch.Tensor:
+                      causal: bool, q_offset: int = 0, kv_len: int | None = None,
+                      chunk: int = 1024) -> torch.Tensor:
     """Online-softmax attention over KV chunks (flash semantics).
 
-    q: (B, Sq, H, D); k, v: (B, Skv, KV, D) with H % KV == 0; q[0] and k[0]
-    are both position 0.  Peak activation is O(B * H * Sq * chunk)
-    regardless of Skv.  (The JAX version's ``q_offset``/``kv_len`` serve
-    only the decode path, which is not ported.)
+    q: (B, Sq, H, D); k, v: (B, Skv, KV, D) with H % KV == 0.
+    ``q_offset`` -- absolute position of q[0] (for causal masking in decode).
+    ``kv_len``   -- valid prefix length of the KV cache (None = all valid).
+    Peak activation is O(B * H * Sq * chunk) regardless of Skv.
     """
     B, Sq, H, D = q.shape
     Skv, KV = k.shape[1], k.shape[2]
@@ -158,17 +165,18 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     dev = q.device
     chunk = min(chunk, Skv)
     n_chunks = (Skv + chunk - 1) // chunk
-    q_pos = torch.arange(Sq, device=dev)
+    q_pos = q_offset + torch.arange(Sq, device=dev)
+    limit = Skv if kv_len is None else kv_len
     NEG = -1e30
 
     def block(kb, kv_start):
-        """One KV block: scores + additive causal bias."""
+        """One KV block: scores + additive bias (validity, then causality)."""
         s = torch.einsum("bqkgd,bckd->bqkgc", qg, kb.float())
-        if not causal:
-            return s
         kv_pos = kv_start + torch.arange(kb.shape[1], device=dev)
-        bias = torch.where(kv_pos[None, :] <= q_pos[:, None],
-                           torch.zeros((), device=dev), NEG)
+        zero = torch.zeros((), device=dev)
+        bias = torch.where(kv_pos[None, :] < limit, zero, NEG)
+        if causal:
+            bias = bias + torch.where(kv_pos[None, :] <= q_pos[:, None], zero, NEG)
         return s + bias[None, :, None, None, :]
 
     if n_chunks == 1:
@@ -197,31 +205,107 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.reshape(B, Sq, H, D).to(q.dtype)
 
 
-AttentionFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
+def _self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    chunk: int, plain: bool) -> torch.Tensor:
+    """Causal attention of a sequence over itself, (B, S, H, D) layout."""
+    if plain:
+        return mha_ref(q, k, v)
+    if q.is_cuda:
+        return mha(q, k, v.contiguous(), causal=True)
+    return chunked_attention(q, k, v, causal=True, chunk=chunk)
+
+
+def _decode_attention(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
+                      pos: int, *, plain: bool) -> torch.Tensor:
+    """One query token at position ``pos`` over the cache prefix
+    ``[0, pos]``: q (B, 1, H, D), ck/cv (B, max_len, KV, D)."""
+    if not (plain or q.is_cuda):
+        return chunked_attention(q, ck, cv, causal=True, q_offset=pos,
+                                 kv_len=pos + 1, chunk=ck.shape[1])
+    kv_len = torch.full((q.shape[0],), pos + 1, dtype=torch.int32, device=q.device)
+    return (gqa_decode_ref if plain else gqa_decode)(q, ck, cv, kv_len)
 
 
 def apply_attention(p: dict, x: torch.Tensor, *, rope_theta: float,
-                    chunk: int = 1024, attn: AttentionFn | None = None) -> torch.Tensor:
-    """Causal self-attention over the whole sequence (no KV cache).
+                    cache: dict | None = None, cache_pos: int | None = None,
+                    chunk: int = 1024, plain: bool = False):
+    """Self-attention.  Returns ``(out, cache)``; ``cache`` is None without
+    one.
 
-    ``attn(q, k, v)`` on (B, S, H, D) / (B, S, KV, D) computes the causal
-    attention; None runs the flash-attention kernel on a CUDA tensor and
-    :func:`chunked_attention` on a CPU one.
+    With a ``cache`` (per-layer ``k``/``v`` of (B, max_len, KV, D), plus
+    ``k_scale``/``v_scale`` of (B, max_len, KV) for an int8 cache), the new
+    K/V are written into it at ``cache_pos`` *in place* -- where the JAX
+    package returns a new array from ``dynamic_update_slice`` -- and the
+    same dict is returned.  A prefill (S > 1, from position 0) attends over
+    the fresh K/V; a decode step (S == 1) attends over the cache prefix
+    ``[0, cache_pos]``.  An int8 cache is dequantized to a bfloat16
+    transient first.  ``plain`` runs the kernels' plain versions.
     """
     _, S, _ = x.shape
     q, k, v = _qkv(p, x)
     head_dim = q.shape[-1]
-    positions = torch.arange(S, device=x.device)
+    base = 0 if cache is None else cache_pos
+    positions = base + torch.arange(S, device=x.device)
     cos, sin = rope_table(positions, head_dim, rope_theta)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
-    if attn is not None:
-        out = attn(q, k, v)
-    elif x.is_cuda:
-        out = mha(q, k, v.contiguous(), causal=True)
+
+    if cache is None:
+        out = _self_attention(q, k, v, chunk=chunk, plain=plain)
     else:
-        out = chunked_attention(q, k, v, causal=True, chunk=chunk)
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+        span = slice(cache_pos, cache_pos + S)
+        if "k_scale" in cache:
+            for name, t in (("k", k), ("v", v)):
+                tq, ts = _quant_kv(t)
+                cache[name][:, span] = tq
+                cache[name + "_scale"][:, span] = ts
+            # dequantized views are per-layer transients
+            ck = cache["k"].to(torch.bfloat16) * cache["k_scale"][..., None].to(torch.bfloat16)
+            cv = cache["v"].to(torch.bfloat16) * cache["v_scale"][..., None].to(torch.bfloat16)
+        else:
+            cache["k"][:, span] = k.to(cache["k"].dtype)
+            cache["v"][:, span] = v.to(cache["v"].dtype)
+            ck, cv = cache["k"], cache["v"]
+        if S == 1:
+            out = _decode_attention(q, ck, cv, cache_pos, plain=plain)
+        else:
+            # prefill from position 0: attending over the fresh K/V is the
+            # same as attending over the cache prefix
+            out = _self_attention(q, k, v, chunk=chunk, plain=plain)
+    y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    return y, cache
+
+
+def attention_cache_spec(batch: int, max_len: int, n_kv: int, head_dim: int,
+                         dtype: str = "bfloat16") -> dict:
+    s = {
+        "k": tensor(batch, max_len, n_kv, head_dim,
+                    axes=("batch", "seq", None, "head_dim"),
+                    dtype=dtype, init="zeros"),
+        "v": tensor(batch, max_len, n_kv, head_dim,
+                    axes=("batch", "seq", None, "head_dim"),
+                    dtype=dtype, init="zeros"),
+    }
+    if dtype == "int8":
+        # per (token, kv-head) quantization scales: an int8 KV cache halves
+        # the decode working set against bfloat16
+        for n in ("k_scale", "v_scale"):
+            s[n] = tensor(batch, max_len, n_kv, axes=("batch", "seq", None),
+                          dtype="float32", init="zeros")
+    return s
+
+
+def _quant_kv(x: torch.Tensor):
+    """(B, S, KV, D) -> int8 values + per-(token, head) float32 scales.
+    ``torch.round`` rounds half to even, as ``jnp.round`` does."""
+    xf = x.float()
+    scale = torch.clamp(torch.amax(torch.abs(xf), dim=-1), min=1e-6) / 127.0
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def kv_cache_dtype(cfg: Any) -> str:
+    return getattr(cfg, "kv_cache_dtype", "bfloat16")
 
 
 # ---------------------------------------------------------------------------

@@ -18,7 +18,7 @@ import numpy as np  # noqa: E402
 
 from repro_torch.core.restore import default_fuse_engine, fuse_ws_block  # noqa: E402
 from repro_torch.kernels import gather_pages, mha, scatter_pages  # noqa: E402
-from repro_torch.kernels.flash_attention import flash_attention_ref  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention_ref, mha_ref  # noqa: E402
 from repro_torch.kernels.page_gather import page_gather_ref, page_scatter_ref  # noqa: E402
 from repro_torch.nn.layers import chunked_attention  # noqa: E402
 
@@ -199,8 +199,7 @@ def test_cuda_flash_matches_plain(cuda, B, S, H, KV, D, dtype):
     (q, k, v), _ = _qkv(B, S, H, KV, D, dtype)
     q, k, v = q.to(cuda), k.to(cuda), v.to(cuda)
     out = mha(q, k, v)
-    ref = flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
-                              v.transpose(1, 2)).transpose(1, 2)
+    ref = mha_ref(q, k, v)
     np.testing.assert_allclose(_f32(out.cpu()), _f32(ref.cpu()), atol=ATOL[dtype])
 
 
