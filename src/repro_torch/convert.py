@@ -11,6 +11,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .device import device_of
+
 
 def _leaf(arr, device) -> torch.Tensor:
     arr = np.ascontiguousarray(arr)
@@ -21,9 +23,12 @@ def _leaf(arr, device) -> torch.Tensor:
     return t.to(device, copy=True)
 
 
-def params_from_numpy(tree: dict, device="cpu") -> dict:
+def params_from_numpy(tree: dict, device="cuda") -> dict:
     """The port's nested param tree, on ``device``, from a JAX-side tree of
-    NumPy arrays (flat ``"a/b"`` keys are nested)."""
+    NumPy arrays (flat ``"a/b"`` keys are nested).  Like
+    ``launch.steps.init_params`` it goes to the card unless the caller asks
+    for the CPU, and raises where the host has no card."""
+    device = device_of(device)
     if any("/" in k for k in tree):
         nested: dict = {}
         for path, arr in tree.items():

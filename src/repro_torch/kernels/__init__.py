@@ -10,3 +10,4 @@ from .decode_attention.ops import gqa_decode
 from .flash_attention.ops import mha
 from .mamba2_scan.ops import ssd_scan
 from .page_gather.ops import gather_pages, scatter_pages
+from .rwkv6_scan.ops import wkv6

@@ -48,6 +48,9 @@ SIGNATURES: dict[str, dict[str, list]] = {
     "mamba2_scan": {
         "ssd_scan": [_P] * 8 + [_I] * 6 + [_I64] * 3 + [_I, _P],
     },
+    "rwkv6_scan": {
+        "wkv6_scan": [_P] * 8 + [_I] * 4 + [_I64] * 12 + [_I, _P],
+    },
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -60,7 +63,7 @@ last_build_seconds: float | None = None
 #: launches its kernel, so a run can show it went through the kernel.
 LAUNCHES: dict[str, int] = {"gather_pages": 0, "scatter_pages": 0,
                             "flash_attention": 0, "decode_attention": 0,
-                            "ssd_scan": 0}
+                            "ssd_scan": 0, "wkv6_scan": 0}
 _COUNT_LOCK = threading.Lock()
 
 

@@ -16,18 +16,9 @@ import numpy as np
 import torch
 
 from ..configs.base import ModelConfig
+from ..device import device_of
 from ..models import get_family
 from ..nn import spec as nnspec
-
-
-def device_of(device: Any) -> torch.device:
-    """``device`` as a torch device; a CUDA device this host cannot use
-    raises (no fallback to the CPU)."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {device!r}: no usable CUDA device on this host "
-                           "(pass device='cpu' to run on the CPU)")
-    return dev
 
 
 # ---------------------------------------------------------------------------

@@ -11,20 +11,19 @@ A family module exposes:
   position ``pos``, returns (logits, cache).
 
 ``plain`` runs the kernels' plain versions instead of the kernels.  The
-dense and hybrid (Mamba2/Zamba2) families are ported; the others raise and
-name the ROADMAP item (§A) that ports them.
+dense, hybrid (Mamba2/Zamba2) and RWKV6 families are ported; the others
+raise and name the ROADMAP item (§A) that ports them.
 """
 from __future__ import annotations
 
 from ..configs.base import ModelConfig
-from . import transformer, zamba
+from . import rwkv6, transformer, zamba
 
-FAMILIES = {"dense": transformer, "hybrid": zamba}
+FAMILIES = {"dense": transformer, "hybrid": zamba, "rwkv": rwkv6}
 
 _NOT_PORTED = {
     "moe": "A7 (MoE)",
     "vlm": "A8 (the VLM path)",
-    "rwkv": "A8 (RWKV6)",
     "encdec": "A8 (encoder-decoder)",
 }
 

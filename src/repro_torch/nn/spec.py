@@ -17,6 +17,8 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import math
+import os
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Callable, Iterator
 
 import numpy as np
@@ -35,6 +37,10 @@ __all__ = [
     "bf16_bits",
     "bf16_bits_to_f32",
 ]
+
+#: leaves drawn at once by :func:`host_initialize`; the largest leaf of
+#: rwkv6-7b takes 7.5 GB of float32 while it is drawn
+_INIT_THREADS = 4
 
 _ITEMSIZE = {"bfloat16": 2, "float16": 2, "float32": 4, "float64": 8,
              "int8": 1, "uint8": 1, "int16": 2, "uint16": 2, "int32": 4,
@@ -145,22 +151,30 @@ def map_leaves(fn: Callable[[str, TensorSpec], Any], tree, prefix: str = ""):
     raise TypeError(f"unsupported spec-tree node: {type(tree)}")
 
 
+def _init_leaf(path: str, s: TensorSpec, seed: int) -> np.ndarray:
+    rng = np.random.default_rng(
+        int.from_bytes(hashlib.md5(f"{seed}:{path}".encode()).digest()[:8], "little")
+    )
+    if s.init in ("zeros", "ones"):
+        x = (np.zeros if s.init == "zeros" else np.ones)(s.shape, np.float32)
+    else:
+        x = rng.standard_normal(s.shape, dtype=np.float32)
+        x *= s.scale if s.scale is not None else 0.02     # float32, in place
+    return bf16_bits(x) if s.dtype == "bfloat16" else x.astype(s.dtype)
+
+
 def host_initialize(tree, seed: int = 0) -> dict[str, np.ndarray]:
     """NumPy-side initialisation for the snapshot substrate, deterministic
     per path: ``default_rng(md5(f"{seed}:{path}"))``, ``standard_normal``
     in float32 times the scale (0.02 unless given) for every law but
     zeros/ones -- ``trunc_fan_in`` included -- then a cast to the leaf
     dtype.  This is the JAX package's law, so the bytes are identical.
-    Returns path -> host storage array (see :func:`storage_dtype`)."""
-    out = {}
-    for path, s in tree_paths(tree):
-        rng = np.random.default_rng(
-            int.from_bytes(hashlib.md5(f"{seed}:{path}".encode()).digest()[:8], "little")
-        )
-        if s.init in ("zeros", "ones"):
-            x = (np.zeros if s.init == "zeros" else np.ones)(s.shape, np.float32)
-        else:
-            scale = s.scale if s.scale is not None else 0.02
-            x = rng.standard_normal(s.shape, dtype=np.float32) * scale
-        out[path] = bf16_bits(x) if s.dtype == "bfloat16" else x.astype(s.dtype)
-    return out
+    Returns path -> host storage array (see :func:`storage_dtype`), in
+    ``tree_paths`` order.  Leaves draw in a few threads at once, largest
+    first (NumPy's generators release the GIL while they fill): each has
+    its own generator, so the bytes do not depend on the order."""
+    leaves = list(tree_paths(tree))
+    with ThreadPoolExecutor(max_workers=min(_INIT_THREADS, os.cpu_count() or 1)) as pool:
+        futures = {path: pool.submit(_init_leaf, path, s, seed)
+                   for path, s in sorted(leaves, key=lambda ps: -ps[1].size)}
+        return {path: futures[path].result() for path, _ in leaves}

@@ -25,6 +25,7 @@ torch = pytest.importorskip("torch")
 import numpy as np  # noqa: E402
 
 from repro_torch.configs import SMOKES  # noqa: E402
+from repro_torch.convert import params_from_numpy  # noqa: E402
 from repro_torch.kernels import LAUNCHES, gqa_decode  # noqa: E402
 from repro_torch.kernels.decode_attention import gqa_decode_ref  # noqa: E402
 from repro_torch.launch import steps  # noqa: E402
@@ -295,6 +296,8 @@ def test_entry_points_default_to_the_card():
         steps.init_params(cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         steps.init_cache(cfg, 1, 8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        params_from_numpy({"embed/table": np.zeros((4, 2), np.float32)})
 
 
 def test_serve_cli_runs_on_cpu(tmp_path, capsys):
