@@ -51,7 +51,11 @@ FLASH_CASES = [                      # (B, S, H, KV, D, dtype)
     (1, 256, 4, 1, 64, "bfloat16"),
     (1, 64, 16, 16, 128, "bfloat16"),     # olmo-1b, the serving request
     (1, 2048, 16, 16, 128, "bfloat16"),   # olmo-1b, a long prompt
+    (4, 1024, 16, 16, 128, "bfloat16"),   # olmo-1b prefill: the kernel table's row
+    (4, 1056, 16, 16, 128, "bfloat16"),   # olmo-1b teacher-forced forward (ragged)
+    (4, 1024, 32, 32, 64, "bfloat16"),    # zamba2-1.2b prefill
 ]
+FLASH_ROW = (4, 1024, 16, 16, 128)      # B3's row of the kernel table
 FLASH_ATOL = {"float32": 2e-5, "bfloat16": 2e-2}
 DECODE_CASES = [                     # (B, S, H, KV, D, dtype, kv_len or None = random)
     (2, 1024, 8, 2, 64, "float32", None),    # the three shapes of tests/test_kernels.py
@@ -103,6 +107,17 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def cuda_ms_in_turns(fns: dict, iters: int) -> dict:
+    """``cuda_ms`` of each of ``fns`` ({name: fn}), timed in turns: in the
+    given order, then in reverse, each the mean of its two readings, so a
+    drift of the card's clocks falls on all alike."""
+    order = list(fns) + list(fns)[::-1]
+    seen: dict[str, list] = {name: [] for name in fns}
+    for name in order:
+        seen[name].append(cuda_ms(fns[name], iters))
+    return {name: sum(ms) / len(ms) for name, ms in seen.items()}
 
 
 def bf16_ulp(x) -> float:
@@ -165,12 +180,13 @@ def check_gather(n: int, row_bytes: int, iters: int) -> dict:
     torch.cuda.synchronize()
     exact = bool(torch.equal(out, ref))
     b, by = bound_ms(2 * n * row_bytes + 8 * n, 0, "bfloat16")
+    ms = cuda_ms_in_turns({"kernel_ms": lambda: gather_pages(table, idx),
+                           "plain_ms": lambda: page_gather_ref(table, idx),
+                           "library_ms": lambda: torch.index_select(table, 0, idx)},
+                          iters)
     res = {"kernel": "gather_pages", "n": n, "row_bytes": row_bytes,
            "byte_exact": exact, "max_abs_err": 0.0 if exact else float("nan"),
-           "kernel_ms": cuda_ms(lambda: gather_pages(table, idx), iters),
-           "plain_ms": cuda_ms(lambda: page_gather_ref(table, idx), iters),
-           "library_ms": cuda_ms(lambda: torch.index_select(table, 0, idx), iters),
-           "bound_ms": b, "bound_by": by}
+           **ms, "bound_ms": b, "bound_by": by}
     del table, out, ref
     torch.cuda.empty_cache()
     return res
@@ -193,12 +209,13 @@ def check_scatter(n: int, row_bytes: int, iters: int) -> dict:
     del out, ref
     dest = base.clone()
     b, by = bound_ms(2 * n * row_bytes + 8 * n, 0, "bfloat16")
+    ms = cuda_ms_in_turns({"kernel_ms": lambda: scatter_pages(ws, idx, dest),
+                           "plain_ms": lambda: page_scatter_ref(ws, idx, dest),
+                           "library_ms": lambda: dest.index_copy_(0, idx, ws)},
+                          iters)
     res = {"kernel": "scatter_pages", "n": n, "row_bytes": row_bytes,
            "byte_exact": exact, "max_abs_err": 0.0 if exact else float("nan"),
-           "kernel_ms": cuda_ms(lambda: scatter_pages(ws, idx, dest), iters),
-           "plain_ms": cuda_ms(lambda: page_scatter_ref(ws, idx, dest), iters),
-           "library_ms": cuda_ms(lambda: dest.index_copy_(0, idx, ws), iters),
-           "bound_ms": b, "bound_by": by}
+           **ms, "bound_ms": b, "bound_by": by}
     del ws, base, dest
     torch.cuda.empty_cache()
     return res
@@ -228,17 +245,41 @@ def check_flash(B: int, S: int, H: int, KV: int, D: int, dtype: str) -> dict:
     ref = plain()
     torch.cuda.synchronize()
     err = float((out.float() - ref.float()).abs().max())
-    iters = 20 if S <= 512 else 5
     n_bytes = (q.numel() * 2 + k.numel() * 2) * q.element_size()
     n_ops = 4 * B * H * D * S * (S + 1) // 2     # QK^T and PV, causal half
     b, by = bound_ms(n_bytes, n_ops, dtype)
+    library_kernels, library_device_ms = device_profile(library)
     return {"kernel": "flash_attention", "shape": [B, S, H, KV, D],
             "dtype": dtype, "max_abs_err": err, "atol": FLASH_ATOL[dtype],
             "ok": err <= FLASH_ATOL[dtype],
-            "kernel_ms": cuda_ms(lambda: mha(q, k, v), iters),
-            "plain_ms": cuda_ms(plain, iters),
-            "library_ms": cuda_ms(library, iters),
+            # outputs that differ from the plain version's at all (in bf16:
+            # those whose rounding flipped)
+            "differing_share": float((out != ref).float().mean()),
+            "kernel_ms": cuda_ms(lambda: mha(q, k, v), 50),
+            "plain_ms": cuda_ms(plain, 20 if S <= 512 else 5),
+            "library_ms": cuda_ms(library, 50),
+            "kernel_device_ms": device_profile(lambda: mha(q, k, v))[1],
+            "library_kernels": library_kernels,
+            "library_device_ms": library_device_ms,
             "bound_ms": b, "bound_by": by}
+
+
+def device_profile(fn, calls: int = 10) -> tuple[list[str], float]:
+    """The names of the device kernels ``fn`` runs, and its device
+    milliseconds a call (its kernels' and copies' spans, summed, over
+    ``calls`` traced calls): unlike CUDA-event times, these leave out the
+    host's launch overhead."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    spans = device_spans(prof)
+    ms = sum(e.time_range.end - e.time_range.start for e in spans) / 1e3 / calls
+    return sorted({e.name for e in spans}), ms
 
 
 def check_decode(B: int, S: int, H: int, KV: int, D: int, dtype: str,
@@ -361,7 +402,7 @@ def phase_kernel_checks(ws_pages: int) -> dict:
     rows = {}
     for n, row_bytes, main in ((ws_pages, 4096, True), (10_000, 4100, False)):
         for fn in (check_gather, check_scatter):
-            res = fn(n, row_bytes, iters=5 if main else 20)
+            res = fn(n, row_bytes, iters=10 if main else 20)
             emit({"phase": "kernel_check", **res})
             if not res["byte_exact"]:
                 raise AssertionError(f"{res['kernel']} differs from its plain "
@@ -374,7 +415,7 @@ def phase_kernel_checks(ws_pages: int) -> dict:
         if not res["ok"]:
             raise AssertionError(f"flash_attention {case}: max abs err "
                                  f"{res['max_abs_err']} > {res['atol']}")
-        if case[:5] == (1, 64, 16, 16, 128):
+        if case[:5] == FLASH_ROW:
             rows["flash_attention"] = res
     for fn, cases, name, row_case in (
             (check_decode, DECODE_CASES, "decode_attention", DECODE_CASES[3]),
@@ -1045,7 +1086,8 @@ def main() -> int:
     decode_launches = phase_decode_paths(t_start)
     emit({"phase": "launch_counts", "path": "decode", "kernel_launches": decode_launches})
     launches = {k: n + decode_launches.get(k, 0) for k, n in launches.items()}
-    emit({"phase": "done", "seconds": time.perf_counter() - t_start})
+    emit({"phase": "done", "seconds": time.perf_counter() - t_start,
+          "flash_library_kernels": rows["flash_attention"]["library_kernels"]})
     print(env["nvidia_smi"], flush=True)
     emit({"kernels": kernel_table(rows, launches)})
     emit({"ok": True, "device": {"platform": "gpu", "kind": env["device"],

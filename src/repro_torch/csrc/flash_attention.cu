@@ -1,26 +1,58 @@
 // Causal GQA flash attention (prefill), sm_90a.
 //
 // Replaces the Pallas kernel src/repro/kernels/flash_attention/kernel.py:
-// flash_attention (public wrapper ops.mha).  Layout is the wrapper's:
-// q (B, S, H, D), k/v (B, S, KV, D), out (B, S, H, D), H % KV == 0, and
-// the KV head of query head h is h / (H / KV).
+// flash_attention (_flash_kernel; public wrapper ops.mha).  Layout is the
+// wrapper's: q (B, S, H, D), k/v (B, S, KV, D), out (B, S, H, D),
+// H % KV == 0, and the KV head of query head h is h / (H / KV).  The scale
+// is the true 1/sqrt(D): the TPU wrapper's padded-D rescale is not carried
+// over.
 //
 // Bound on the H100: 4 * B * H * D * S(S+1)/2 causal operations against
-// 2 * B * S * (H + KV) * D * itemsize bytes: at olmo-1b's S = 2048 it is
-// bound by operations; at the serving request's S = 64 the bound (bytes,
-// 0.3 us) is far below the cost of a launch, which is what it pays.
+// 2 * B * S * (H + KV) * D * itemsize bytes.  At prompt length it is bound
+// by operations (olmo-1b's prefill, B = 4, S = 1024, 16 heads of 128:
+// 17.2 G operations, 0.017 ms at 989 TFLOP/s bf16); at the serving
+// request's S = 64 by bytes (0.3 us), far below the cost of a launch.
 //
-// Design (right and simple first; tensor cores are a later step): one CTA
-// of 256 threads per (64-row query tile, head, batch).  Q, then each K/V
-// tile, is staged through shared memory in float32; K and Q rows are
-// padded by one float so the 4 rows a warp reads at once fall on distinct
-// banks.  Four neighbouring lanes own one query row: they split its 64
-// scores, reduce the running max and normaliser with two shuffles, and
-// own a quarter of its D accumulator columns in registers.  Scores, max,
-// normaliser and accumulator are float32; the causal loop stops at the
-// diagonal tile, and rows or keys past S are masked, so S need not be a
-// multiple of the tile.  The scale is the true 1/sqrt(D): the TPU
-// wrapper's padded-D rescale is not carried over.
+// Two routes, chosen by dtype, neither a fallback of the other:
+//
+// bfloat16 -- tensor cores (flash_fwd_bf16), FlashAttention-2's shape.
+//   One CTA of 4 warps per (64-row query tile, head, batch); each warp owns
+//   16 query rows.  The grid walks query tiles last to first, so the
+//   longest causal rows start first.  Q is staged once in shared memory and
+//   read as mma A fragments (ldmatrix) at each k-step: holding them in
+//   registers instead spills at D = 128.  K and V
+//   come in 64-row tiles by 16-byte cp.async into a two-stage ring: the
+//   next tile is in flight while this one computes.  Rows are padded by 8
+//   elements (16 bytes), so the 8 rows an ldmatrix phase reads fall on 8
+//   distinct 16-byte bank groups for every D taken.  S = Q K^T is
+//   mma.sync m16n8k16 bf16 -> f32 (D/16 k-steps, 8 n-tiles a warp) and
+//   stays in registers.  The online softmax runs on them in f32: row max
+//   and sum reduced over the lane quad by shuffles, exp2 with
+//   scale * log2(e) folded in; the causal mask and the keys past S apply
+//   only on the tiles that reach them (with BQ == BK, the diagonal tile
+//   and the tile holding S - 1).  The S accumulator layout is reused as the
+//   A fragment of P V, 16 keys at a time; V's B fragments come from
+//   ldmatrix.trans.  O accumulates in f32 registers, is divided by the row
+//   sum, rounded to bf16, staged in the Q buffer and written with 16-byte
+//   stores.
+//
+//   P precision: P is split into kPParts = 3 bf16 parts, each the bf16
+//   rounding of what the parts before it leave (24 bits of P, float32's),
+//   and P V is three products: twice the operations of one bf16 P.  The
+//   TPU kernel rounds P to bf16 once (p.astype(v.dtype), kernel.py:50), and
+//   so did this kernel at first: on the H100 that flipped the bf16 rounding
+//   of a large share of the outputs against the float32 plain version and
+//   moved olmo-1b's prefill logits past chip_smoke.py's four-ulp gate
+//   (random weights amplify each flipped rounding).  Two parts (16 bits)
+//   passed it with no margin; three halve the flips again.  The row sum
+//   adds the unsplit float32 P.  PERF.md has the readings.
+//
+// float32 -- CUDA cores (flash_fwd_f32), the first port's kernel.  TF32
+//   would keep about three decimal digits, and the float32 paths are the
+//   precision checks (2e-5), so float32 stays on scalar FMAs: one CTA of
+//   256 threads per (64-row query tile, head, batch), Q and K/V tiles in
+//   shared memory as float32 (rows padded by one float), four lanes per
+//   query row splitting its 64 scores and a quarter of its accumulator.
 
 #include <cmath>
 #include <cstdint>
@@ -31,32 +63,23 @@ namespace {
 
 constexpr int kBQ = 64;
 constexpr int kBK = 64;
-constexpr int kThreads = 256;
+constexpr int kPParts = 3;               // bf16 parts P is split into
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
-    float x) {
-  return __float2bfloat16(x);
-}
+// -- float32: CUDA-core FMAs --------------------------------------------------
+
+constexpr int kF32Threads = 256;
 
 template <int D>
-constexpr size_t smem_bytes() {
+constexpr size_t f32_smem_bytes() {
   return sizeof(float) *
          (kBQ * (D + 1) + kBK * (D + 1) + kBK * D + kBQ * (kBK + 1));
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
-          const T* __restrict__ v, T* __restrict__ o, int S, int H, int KV,
-          float scale, int causal) {
+template <int D>
+__global__ void __launch_bounds__(kF32Threads)
+flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, float* __restrict__ o, int S,
+              int H, int KV, float scale, int causal) {
   constexpr int LQ = D + 1;        // padded row of sQ / sK
   constexpr int LP = kBK + 1;      // padded row of sP
   constexpr int NC = D / 4;        // accumulator columns per thread
@@ -75,13 +98,13 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = qt * kBQ;
   const int64_t q_row = static_cast<int64_t>(H) * D;
   const int64_t kv_row = static_cast<int64_t>(KV) * D;
-  const T* qb = q + static_cast<int64_t>(b) * S * q_row + h * D;
-  const T* kb = k + static_cast<int64_t>(b) * S * kv_row + kvh * D;
-  const T* vb = v + static_cast<int64_t>(b) * S * kv_row + kvh * D;
+  const float* qb = q + static_cast<int64_t>(b) * S * q_row + h * D;
+  const float* kb = k + static_cast<int64_t>(b) * S * kv_row + kvh * D;
+  const float* vb = v + static_cast<int64_t>(b) * S * kv_row + kvh * D;
 
-  for (int e = tid; e < kBQ * D; e += kThreads) {
+  for (int e = tid; e < kBQ * D; e += kF32Threads) {
     const int rr = e / D, d = e % D, s = q0 + rr;
-    sQ[rr * LQ + d] = s < S ? to_f(qb[s * q_row + d]) * scale : 0.f;
+    sQ[rr * LQ + d] = s < S ? qb[s * q_row + d] * scale : 0.f;
   }
 
   float m = -INFINITY, l = 0.f;
@@ -95,11 +118,11 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
   for (int kt = 0; kt < kv_end; ++kt) {
     const int k0 = kt * kBK;
     __syncthreads();               // previous tile's sK/sV/sP reads are done
-    for (int e = tid; e < kBK * D; e += kThreads) {
+    for (int e = tid; e < kBK * D; e += kF32Threads) {
       const int rr = e / D, d = e % D, s = k0 + rr;
       const bool in = s < S;
-      sK[rr * LQ + d] = in ? to_f(kb[s * kv_row + d]) : 0.f;
-      sV[rr * D + d] = in ? to_f(vb[s * kv_row + d]) : 0.f;
+      sK[rr * LQ + d] = in ? kb[s * kv_row + d] : 0.f;
+      sV[rr * D + d] = in ? vb[s * kv_row + d] : 0.f;
     }
     __syncthreads();
 
@@ -146,57 +169,357 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   if (qpos < S) {
-    T* ob = o + static_cast<int64_t>(b) * S * q_row + h * D +
-            static_cast<int64_t>(qpos) * q_row;
+    float* ob = o + static_cast<int64_t>(b) * S * q_row + h * D +
+                static_cast<int64_t>(qpos) * q_row;
     const float den = fmaxf(l, 1e-20f);
 #pragma unroll
-    for (int c = 0; c < NC; ++c) ob[sub + 4 * c] = from_f<T>(acc[c] / den);
+    for (int c = 0; c < NC; ++c) ob[sub + 4 * c] = acc[c] / den;
   }
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int S, int H, int KV, float scale, int causal, void* stream) {
-  constexpr size_t smem = smem_bytes<D>();
+// -- bfloat16: tensor cores -----------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+constexpr int kWarps = kBQ / 16;          // 16 query rows each
+constexpr int kThreads = 32 * kWarps;
+static_assert(kBQ == kBK, "one tile shape for Q, K and V");
+
+template <int D>
+struct Tile {
+  static constexpr int kLd = D + 8;       // padded row, elements (16 bytes)
+  static constexpr int kElems = kBK * kLd;
+  static constexpr int kChunks = D / 8;   // 16-byte chunks of a row
+  // Q (reused for the output), then two stages of K and two of V
+  static constexpr size_t kSmem = sizeof(bf16) * 5 * kElems;
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously; zero-filled when !in.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(in ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t addr,
+                                              uint32_t (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// c (16x8 f32) += a (16x16 bf16, row) * b (16x8 bf16, col)
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+__device__ __forceinline__ float2 unpack_bf16(uint32_t u) {
+  return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&u));
+}
+
+// Rows r0 .. r0 + 63 of a (rows, stride) bf16 matrix into a padded tile;
+// rows at or past S are zero-filled.
+template <int D>
+__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
+                                          int64_t stride, int r0, int S,
+                                          int tid) {
+  using T = Tile<D>;
+  static_assert(kBK * T::kChunks % kThreads == 0, "whole chunks a thread");
+#pragma unroll
+  for (int i = 0; i < kBK * T::kChunks / kThreads; ++i) {
+    const int c = tid + i * kThreads;
+    const int r = c / T::kChunks, col = (c % T::kChunks) * 8;
+    const bool in = r0 + r < S;
+    cp_async16(smem_addr(dst + r * T::kLd + col),
+               src + (in ? (r0 + r) * stride : 0) + col, in);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
+               const bf16* __restrict__ v, bf16* __restrict__ o, int S,
+               int H, int KV, float scale_log2, int causal) {
+  using T = Tile<D>;
+  constexpr int Ld = T::kLd;
+  constexpr int KS = D / 16;              // k-steps of Q K^T
+  constexpr int NT = D / 8;               // n-tiles of P V
+  constexpr int SN = kBK / 8;             // n-tiles of S
+  static_assert(D % 16 == 0, "head dim a multiple of 16");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
+  bf16* sK = sQ + T::kElems;              // stages at sK, sK + kElems
+  bf16* sV = sK + 2 * T::kElems;
+
+  const int n_q = (S + kBQ - 1) / kBQ;
+  const int qt = n_q - 1 - static_cast<int>(blockIdx.z);   // longest first
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int kvh = h / (H / KV);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;  // mma row group, lane in quad
+  const int q0 = qt * kBQ;
+  const int wq0 = q0 + warp * 16;         // this warp's first query row
+  const int64_t q_row = static_cast<int64_t>(H) * D;
+  const int64_t kv_row = static_cast<int64_t>(KV) * D;
+  const bf16* qb = q + static_cast<int64_t>(b) * S * q_row + h * D;
+  const bf16* kb = k + static_cast<int64_t>(b) * S * kv_row + kvh * D;
+  const bf16* vb = v + static_cast<int64_t>(b) * S * kv_row + kvh * D;
+
+  const int n_kv = (S + kBK - 1) / kBK;
+  const int kv_end = causal ? min(n_kv, qt + 1) : n_kv;    // kBQ == kBK
+
+  load_tile<D>(sQ, qb, q_row, q0, S, tid);
+  load_tile<D>(sK, kb, kv_row, 0, S, tid);
+  load_tile<D>(sV, vb, kv_row, 0, S, tid);
+  cp_async_commit();
+
+  // ldmatrix row offsets of this lane: A (and V^T) tiles take rows
+  // (lane & 7) + 8 * ((lane >> 3) & 1) and column half lane >> 4; K's
+  // B tiles take rows (lane & 7) + 8 * (lane >> 4), column half
+  // (lane >> 3) & 1.
+  const int a_row = (lane & 7) + 8 * ((lane >> 3) & 1), a_col = 8 * (lane >> 4);
+  const int b_row = (lane & 7) + 8 * (lane >> 4), b_col = 8 * ((lane >> 3) & 1);
+
+  float acc[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};    // rows g and g + 8, raw scores
+  float l[2] = {0.f, 0.f};                // this lane's part of the row sum
+
+  for (int kt = 0; kt < kv_end; ++kt) {
+    const int st = kt & 1;
+    if (kt + 1 < kv_end) {
+      load_tile<D>(sK + (st ^ 1) * T::kElems, kb, kv_row, (kt + 1) * kBK, S,
+                   tid);
+      load_tile<D>(sV + (st ^ 1) * T::kElems, vb, kv_row, (kt + 1) * kBK, S,
+                   tid);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();                   // tile kt (and Q) have landed
+    __syncthreads();
+    const int k0 = kt * kBK;
+    const bf16* cK = sK + st * T::kElems;
+    const bf16* cV = sV + st * T::kElems;
+
+    float s[SN][4];
+#pragma unroll
+    for (int j = 0; j < SN; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      uint32_t qa[4];
+      ldsm_x4(smem_addr(sQ + (warp * 16 + a_row) * Ld + ks * 16 + a_col), qa);
+#pragma unroll
+      for (int jp = 0; jp < SN / 2; ++jp) {
+        uint32_t bk[4];
+        ldsm_x4(smem_addr(cK + (jp * 16 + b_row) * Ld + ks * 16 + b_col), bk);
+        mma_bf16(s[2 * jp], qa, bk[0], bk[1]);
+        mma_bf16(s[2 * jp + 1], qa, bk[2], bk[3]);
+      }
+    }
+
+    // only the tiles that reach past this warp's first row or past S mask
+    if ((causal && k0 + kBK - 1 > wq0) || k0 + kBK > S) {
+      const int qr = wq0 + g;
+#pragma unroll
+      for (int j = 0; j < SN; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kpos = k0 + j * 8 + 2 * t + (e & 1);
+          const int qpos = qr + 8 * (e >> 1);
+          if (kpos >= S || (causal && kpos > qpos)) s[j][e] = -INFINITY;
+        }
+    }
+
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int j = 0; j < SN; ++j) {
+      mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]));
+      mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]));
+    }
+    float base[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      // a row with every key masked so far keeps max -inf: subtract 0
+      base[i] = mx[i] == -INFINITY ? 0.f : mx[i] * scale_log2;
+      const float corr = exp2f(m[i] * scale_log2 - base[i]);
+      m[i] = mx[i];
+      l[i] *= corr;
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        acc[n][2 * i] *= corr;
+        acc[n][2 * i + 1] *= corr;
+      }
+    }
+
+    // P V, 16 keys at a time: P's k-step kk is S's n-tiles 2kk (A
+    // fragment registers a0, a1: rows g, g + 8) and 2kk + 1 (a2, a3), split
+    // into bf16 high and low parts; each is formed just before its
+    // products, so only one k-step of P is live in registers.
+#pragma unroll
+    for (int kk = 0; kk < SN / 2; ++kk) {
+      uint32_t pf[kPParts][4];
+#pragma unroll
+      for (int h2 = 0; h2 < 2; ++h2) {
+        const int j = 2 * kk + h2;
+        float p[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          p[e] = exp2f(fmaf(s[j][e], scale_log2, -base[e >> 1]));
+        l[0] += p[0] + p[1];
+        l[1] += p[2] + p[3];
+#pragma unroll
+        for (int part = 0; part < kPParts; ++part) {
+          pf[part][2 * h2] = pack_bf16(p[0], p[1]);
+          pf[part][2 * h2 + 1] = pack_bf16(p[2], p[3]);
+          const float2 r01 = unpack_bf16(pf[part][2 * h2]);
+          const float2 r23 = unpack_bf16(pf[part][2 * h2 + 1]);
+          p[0] -= r01.x;
+          p[1] -= r01.y;
+          p[2] -= r23.x;
+          p[3] -= r23.y;
+        }
+      }
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t bv[4];
+        ldsm_x4_trans(
+            smem_addr(cV + (kk * 16 + a_row) * Ld + np * 16 + a_col), bv);
+#pragma unroll
+        for (int part = 0; part < kPParts; ++part) {
+          mma_bf16(acc[2 * np], pf[part], bv[0], bv[1]);
+          mma_bf16(acc[2 * np + 1], pf[part], bv[2], bv[3]);
+        }
+      }
+    }
+    __syncthreads();                      // stage st is refilled next
+  }
+
+  // the row sums over the quad; the output tile through sQ (a warp writes
+  // only its own rows, whose Q it has read for the last time), then
+  // 16-byte stores of the rows below S
+  float inv[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    inv[i] = __fdividef(1.f, fmaxf(l[i], 1e-20f));   // no slow-path call
+  }
+  const int orow = warp * 16 + g;
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    const int col = n * 8 + 2 * t;
+    *reinterpret_cast<uint32_t*>(sQ + orow * Ld + col) =
+        pack_bf16(acc[n][0] * inv[0], acc[n][1] * inv[0]);
+    *reinterpret_cast<uint32_t*>(sQ + (orow + 8) * Ld + col) =
+        pack_bf16(acc[n][2] * inv[1], acc[n][3] * inv[1]);
+  }
+  __syncthreads();
+  bf16* ob = o + static_cast<int64_t>(b) * S * q_row + h * D;
+#pragma unroll
+  for (int i = 0; i < kBQ * T::kChunks / kThreads; ++i) {
+    const int c = tid + i * kThreads;
+    const int r = c / T::kChunks, col = (c % T::kChunks) * 8;
+    if (q0 + r < S)
+      *reinterpret_cast<uint4*>(ob + (q0 + r) * q_row + col) =
+          *reinterpret_cast<const uint4*>(sQ + r * Ld + col);
+  }
+}
+
+// -- launch ---------------------------------------------------------------------
+
+template <int D>
+int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
+               int S, int H, int KV, float scale, int causal,
+               cudaStream_t stream) {
+  constexpr size_t smem = f32_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((S + kBQ - 1) / kBQ, H, B);
-  flash_fwd<T, D><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), S, H, KV, scale, causal);
+  flash_fwd_f32<D><<<grid, kF32Threads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), S, H, KV, scale,
+      causal);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* o, int B,
-             int S, int H, int KV, int D, float scale, int causal,
-             void* stream) {
-  switch (D) {
-    case 32: return launch<T, 32>(q, k, v, o, B, S, H, KV, scale, causal, stream);
-    case 64: return launch<T, 64>(q, k, v, o, B, S, H, KV, scale, causal, stream);
-    case 80: return launch<T, 80>(q, k, v, o, B, S, H, KV, scale, causal, stream);
-    case 128: return launch<T, 128>(q, k, v, o, B, S, H, KV, scale, causal, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+template <int D>
+int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
+                int S, int H, int KV, float scale, int causal,
+                cudaStream_t stream) {
+  constexpr size_t smem = Tile<D>::kSmem;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(H, B, (S + kBQ - 1) / kBQ);
+  flash_fwd_bf16<D><<<grid, kThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), S, H, KV,
+      scale * 1.4426950408889634f, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* o, int B,
+           int S, int H, int KV, int dtype, float scale, int causal,
+           cudaStream_t stream) {
+  if (dtype == 0)
+    return launch_f32<D>(q, k, v, o, B, S, H, KV, scale, causal, stream);
+  if (dtype == 1)
+    return launch_bf16<D>(q, k, v, o, B, S, H, KV, scale, causal, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16.  All tensors contiguous.
+// dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores).  All
+// tensors contiguous; bfloat16 ones 16-byte aligned.
 int flash_attention(const void* q, const void* k, const void* v, void* o,
                     int B, int S, int H, int KV, int D, int dtype,
                     float scale, int causal, void* stream) {
   if (B <= 0 || S <= 0) return static_cast<int>(cudaSuccess);
-  if (dtype == 0)
-    return dispatch<float>(q, k, v, o, B, S, H, KV, D, scale, causal, stream);
-  if (dtype == 1)
-    return dispatch<__nv_bfloat16>(q, k, v, o, B, S, H, KV, D, scale, causal,
-                                   stream);
-  return static_cast<int>(cudaErrorInvalidValue);
+  auto st = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 32: return launch<32>(q, k, v, o, B, S, H, KV, dtype, scale, causal, st);
+    case 64: return launch<64>(q, k, v, o, B, S, H, KV, dtype, scale, causal, st);
+    case 80: return launch<80>(q, k, v, o, B, S, H, KV, dtype, scale, causal, st);
+    case 128: return launch<128>(q, k, v, o, B, S, H, KV, dtype, scale, causal, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // extern "C"

@@ -34,8 +34,8 @@ _I64 = ctypes.c_int64
 #: library stem -> {C entry point: argtypes}; every entry returns an int.
 SIGNATURES: dict[str, dict[str, list]] = {
     "page_gather": {
-        "gather_pages": [_P, _P, _P, _I64, _I64, _P],
-        "scatter_pages": [_P, _P, _P, _I64, _I64, _P],
+        "gather_pages": [_P, _P, _P, _I64, _I64, _I64, _P],
+        "scatter_pages": [_P, _P, _P, _I64, _I64, _I64, _P],
     },
     "flash_attention": {
         "flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

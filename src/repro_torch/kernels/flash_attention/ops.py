@@ -22,7 +22,8 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q: (B, S, H, D); k, v: (B, S, KV, D), H % KV == 0 -> (B, S, H, D).
 
     Self-attention: queries and keys share the sequence (Sq == Skv).  The
-    kernel takes float32 or bfloat16 with D in ``HEAD_DIMS``.
+    kernel takes float32 (on the CUDA cores) or bfloat16 (on the tensor
+    cores, with P split into three bfloat16 parts) with D in ``HEAD_DIMS``.
     """
     if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:
         raise ValueError(f"mha: want q (B,S,H,D), k/v (B,S,KV,D); got "
@@ -45,6 +46,9 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"mha: kernel takes head dims {HEAD_DIMS}, got {D}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("mha: tensors must be contiguous")
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("mha: bfloat16 tensors must be 16-byte aligned "
+                         "(the kernel copies 16-byte vectors)")
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out

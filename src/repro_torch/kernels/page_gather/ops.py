@@ -3,6 +3,9 @@
 Rows may be of any dtype and width: the kernel moves ``row_bytes`` bytes
 per row, 16 at a time when the width and pointers allow.  A CPU tensor runs
 the plain version in ``ref``; a CUDA tensor launches the kernel or raises.
+Indices are range-checked on the host for CPU tensors and inside the kernel
+for CUDA ones (a device-side assert, as ``torch.index_select``), so a
+launch never waits for the device.
 """
 from __future__ import annotations
 
@@ -20,9 +23,9 @@ def _check_rows(name: str, rows: torch.Tensor, idx: torch.Tensor,
     if idx.dim() != 1 or idx.dtype != torch.int64:
         raise TypeError(f"{name}: idx must be 1-D int64, got {idx.dtype} "
                         f"{tuple(idx.shape)}")
-    if idx.numel() and (int(idx.min()) < 0 or int(idx.max()) >= n_rows):
-        raise IndexError(f"{name}: idx out of range [0, {n_rows})")
     if rows.device.type == "cpu" and idx.device.type == "cpu":
+        if idx.numel() and (int(idx.min()) < 0 or int(idx.max()) >= n_rows):
+            raise IndexError(f"{name}: idx out of range [0, {n_rows})")
         return True
     if rows.device.type != "cuda" or idx.device != rows.device:
         raise ValueError(f"{name}: tensors must all lie on one CUDA device "
@@ -47,7 +50,7 @@ def gather_pages(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     with torch.cuda.device(table.device):
         rc = library("page_gather").gather_pages(
             table.data_ptr(), idx.data_ptr(), out.data_ptr(), idx.shape[0],
-            table.shape[1] * table.element_size(),
+            table.shape[0], table.shape[1] * table.element_size(),
             torch.cuda.current_stream().cuda_stream)
     check(rc, "gather_pages")
     count_launch("gather_pages")
@@ -78,7 +81,7 @@ def scatter_pages(ws: torch.Tensor, idx: torch.Tensor,
     with torch.cuda.device(dest.device):
         rc = library("page_gather").scatter_pages(
             ws.data_ptr(), idx.data_ptr(), dest.data_ptr(), idx.shape[0],
-            ws.shape[1] * ws.element_size(),
+            dest.shape[0], ws.shape[1] * ws.element_size(),
             torch.cuda.current_stream().cuda_stream)
     check(rc, "scatter_pages")
     count_launch("scatter_pages")

@@ -8,7 +8,11 @@ card; they skip on a host without one.  JAX is imported only by the tests
 that compare with it, so the file also runs where JAX is absent.  On the
 H100: ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_kernels.py``.
 """
+import os
+import subprocess
+import sys
 import types
+from pathlib import Path
 
 import pytest
 
@@ -27,6 +31,9 @@ FLASH_SHAPES = [                       # tests/test_kernels.py:19-24
     (1, 128, 8, 8, 128, "float32"),
     (2, 384, 6, 2, 80, "float32"),
     (1, 256, 4, 1, 64, "bfloat16"),
+    # bf16 at olmo-1b's head dim with GQA, against the Pallas kernel, which
+    # rounds P to bf16 before P V
+    (1, 128, 8, 2, 128, "bfloat16"),
 ]
 ATOL = {"float32": 2e-5, "bfloat16": 2e-2}   # tests/test_kernels.py:35
 
@@ -178,7 +185,11 @@ def test_mha_rejects_bad_shapes():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,width", [(4096, 4096), (1000, 4100)])
+@pytest.mark.parametrize("n,width", [(4096, 4096), (1000, 4100),
+                                     (3, 4096),       # fewer rows than one CTA's warps
+                                     (1057, 4096),    # not a multiple of the rows a CTA
+                                     (64, 32768),     # each lane loops over the row
+                                     (3, 4100)])      # byte path, one part-filled CTA
 def test_cuda_gather_scatter_match_plain(cuda, n, width):
     g = torch.Generator(device=cuda).manual_seed(0)
     table = torch.randint(0, 256, (n, width), dtype=torch.uint8, device=cuda,
@@ -201,6 +212,56 @@ def test_cuda_flash_matches_plain(cuda, B, S, H, KV, D, dtype):
     out = mha(q, k, v)
     ref = mha_ref(q, k, v)
     np.testing.assert_allclose(_f32(out.cpu()), _f32(ref.cpu()), atol=ATOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["gather", "scatter"])
+def test_cuda_page_index_out_of_range_stops_the_kernel(cuda, op):
+    """On the card the indices are checked inside the kernel: an index past
+    the indexed rows trips a device-side assert (run in a child process,
+    whose CUDA context the assert ends)."""
+    call = ("gather_pages(t, i)" if op == "gather"
+            else "scatter_pages(t[:2].contiguous(), i, t)")
+    code = ("import torch\n"
+            "from repro_torch.kernels import gather_pages, scatter_pages\n"
+            "t = torch.zeros((4, 4096), dtype=torch.uint8, device='cuda')\n"
+            "i = torch.tensor([0, 9], device='cuda')\n"
+            f"{call}\n"
+            "torch.cuda.synchronize()\n")
+    src = str(Path(__file__).resolve().parents[1] / "src")
+    env = {**os.environ, "PYTHONPATH": src + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, env=env, timeout=600)
+    assert proc.returncode != 0
+    assert "device-side assert" in proc.stdout + proc.stderr
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 64, 100, 1056])
+@pytest.mark.parametrize("D", [32, 64, 80, 128])
+def test_cuda_flash_bf16_within_four_ulps(cuda, D, S):
+    """The tensor-core route (bf16) against the float32 plain version, GQA
+    with H / KV = 4, causal, at ragged and one-row lengths: within four
+    bf16 ulps at the output's largest magnitude (``KERNEL_ULPS`` of
+    chip_smoke.py)."""
+    (q, k, v), _ = _qkv(2, S, 8, 2, D, "bfloat16", seed=S + D)
+    q, k, v = q.to(cuda), k.to(cuda), v.to(cuda)
+    out = mha(q, k, v)
+    ref = mha_ref(q, k, v).float()
+    ulp = 2.0 ** (np.floor(np.log2(float(ref.abs().max()))) - 7)
+    assert bool(torch.isfinite(out).all())
+    assert float((out.float() - ref).abs().max()) <= 4 * ulp
+
+
+@pytest.mark.cuda
+def test_cuda_mha_rejects_misaligned_bf16(cuda):
+    """The bf16 kernel copies 16-byte vectors: a contiguous view that
+    starts off a 16-byte boundary is refused, not read misaligned."""
+    base = torch.zeros(1 * 64 * 4 * 64 + 1, dtype=torch.bfloat16, device=cuda)
+    q = base[1:].view(1, 64, 4, 64)
+    assert q.is_contiguous() and q.data_ptr() % 16
+    with pytest.raises(ValueError):
+        mha(q, q, q)
 
 
 @pytest.mark.cuda
