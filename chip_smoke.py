@@ -7,7 +7,9 @@ Phases, one JSON line each (any failure raises and exits non-zero):
 
 1. environment: the card, its power limit (``nvidia-smi``) and versions;
 2. build: every kernel of ``src/repro_torch/csrc`` compiled with ``nvcc``
-   for ``sm_90a`` (into ``build/repro_torch/``);
+   for ``sm_90a`` (into ``build/repro_torch/``), then the scan kernels'
+   registers, shared memory, spills, tensor-core instructions and CTAs
+   per SM;
 3. kernel checks: each kernel against its plain PyTorch version on the
    card at the main path's shapes, with its time, the plain version's,
    one library call's (a yardstick the port never calls) and its bound;
@@ -43,7 +45,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM, NVIDIA data sheet
-PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}   # dense, no sparsity
+PEAK_OPS_PER_S = {"bfloat16": 989e12, "tf32": 495e12,   # tensor cores, dense
+                  "float32": 67e12}                        # CUDA cores
 FLASH_CASES = [                      # (B, S, H, KV, D, dtype)
     (2, 256, 4, 2, 64, "float32"),   # the four shapes of tests/test_kernels.py
     (1, 128, 8, 8, 128, "float32"),
@@ -79,6 +82,7 @@ SSD_CASES = [                        # (Bz, L, H, P, N, chunk, x dtype)
 DECODE_ATOL = {"float32": 2e-5}
 KERNEL_ULPS = 4
 SSD_ATOL = 5e-4
+SSD_KERNEL_CHUNK = 32                # kLc in src/repro_torch/csrc/mamba2_scan.cu
 WKV_CASES = [                        # (B, L, H, D, chunk, r/k/v dtype)
     (2, 128, 4, 64, 32, "float32"),          # the three shapes of tests/test_kernels.py
     (1, 256, 2, 32, 64, "float32"),
@@ -162,6 +166,62 @@ def phase_build() -> None:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": build.last_build_seconds,
           "libraries": {s: str(p.relative_to(ROOT)) for s, p in libs.items()}})
+    emit({"phase": "ptxas", "kernels": scan_kernel_report(build.build_dir(), libs)})
+
+
+def short_names(mangled: list[str]) -> dict[str, str]:
+    """Mangled kernel name -> ``name<template arguments>`` (``c++filt``;
+    the mangled name where it is missing)."""
+    import re
+    try:
+        out = subprocess.run(["c++filt"], input="\n".join(mangled), capture_output=True,
+                             text=True, check=True, timeout=60).stdout.splitlines()
+    except (OSError, subprocess.SubprocessError):
+        return {m: m for m in mangled}
+    short = [re.sub(r"\(anonymous namespace\)::|^void |\(.*\)$", "", d) for d in out]
+    return dict(zip(mangled, short))
+
+
+def scan_kernel_report(out_dir, libs: dict) -> dict:
+    """Registers, static shared memory and spills of each scan kernel (B5,
+    B6) from the build's ``-Xptxas -v`` logs, and its HMMA (tensor-core
+    mma) instructions in the built code (``cuobjdump -sass``; None
+    without the tool)."""
+    import re
+    seen: dict[str, dict] = {}
+    for stem in ("mamba2_scan", "rwkv6_scan"):
+        fn = None
+        for ln in (out_dir / f"{stem}.log").read_text().splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", ln)
+            if m:
+                fn = m.group(1)
+                seen[fn] = {"library": stem, "hmma": None}
+            elif fn and (m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                                        r"stores, (\d+) bytes spill loads", ln)):
+                seen[fn].update(stack=int(m[1]), spill_stores=int(m[2]),
+                                spill_loads=int(m[3]))
+            elif fn and (m := re.search(r"Used (\d+) registers", ln)):
+                smem = re.search(r"(\d+) bytes smem", ln)
+                seen[fn].update(registers=int(m[1]),
+                                static_smem=int(smem[1]) if smem else 0)
+        cuobjdump = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                                 "bin", "cuobjdump")
+        try:
+            sass = subprocess.run([cuobjdump, "-sass", str(libs[stem])], capture_output=True,
+                                  text=True, check=True, timeout=300).stdout
+        except (OSError, subprocess.SubprocessError):
+            continue
+        fn = None
+        for ln in sass.splitlines():
+            m = re.search(r"Function : (\w+)", ln)
+            if m:
+                fn = m.group(1)
+                if fn in seen:
+                    seen[fn]["hmma"] = 0
+            elif fn in seen and "HMMA" in ln:
+                seen[fn]["hmma"] += 1
+    names = short_names(sorted(seen))
+    return {names[m]: seen[m] for m in sorted(seen)}
 
 
 # -- phase 3: kernel checks ----------------------------------------------------
@@ -317,22 +377,28 @@ def check_decode(B: int, S: int, H: int, KV: int, D: int, dtype: str,
     isz = q.element_size()
     n_bytes = 2 * q.numel() * isz + 4 * B + 2 * keys * KV * D * isz
     b, by = bound_ms(n_bytes, 4 * G * D * KV * keys, dtype)
+    library_kernels, library_device_ms = device_profile(library)
     return {"kernel": "decode_attention", "shape": [B, S, H, KV, D],
             "kv_len": lens.tolist(), "dtype": dtype, "max_abs_err": err,
             "max_abs_out": float(ref.float().abs().max()), "atol": atol,
             "ok": err <= atol,
             "kernel_ms": cuda_ms(lambda: gqa_decode(q, k, v, lens_d), 50),
             "plain_ms": cuda_ms(plain, 20), "library_ms": cuda_ms(library, 20),
+            "kernel_device_ms": device_profile(lambda: gqa_decode(q, k, v, lens_d))[1],
+            "library_kernels": library_kernels,
+            "library_device_ms": library_device_ms,
             "bound_ms": b, "bound_by": by}
 
 
-def ssd_operations(Bz: int, L: int, H: int, P: int, N: int, chunk: int) -> int:
-    """Operations the chunked scan needs on these shapes: per (b, chunk),
-    C B^T over the causal half once (B and C are shared by the heads), and
-    per head M x over the causal half, C h and the state update."""
+def ssd_operations(Bz: int, L: int, H: int, P: int, N: int, chunk: int) -> dict:
+    """Operations the chunked scan needs on these shapes, by product: per
+    (b, chunk), C B^T over the causal half once (B and C are shared by the
+    heads), and per head M x over the causal half, C h and the state
+    update."""
     Lc = min(chunk, L)
-    per_head = Lc * (Lc + 1) * P + 4 * Lc * N * P
-    return Bz * (-(-L // Lc)) * (H * per_head + Lc * (Lc + 1) * N)
+    n = Bz * (-(-L // Lc))
+    return {"CB": n * Lc * (Lc + 1) * N, "Mx": n * H * Lc * (Lc + 1) * P,
+            "Ch": n * H * 2 * Lc * N * P, "update": n * H * 2 * Lc * N * P}
 
 
 def check_ssd(Bz: int, L: int, H: int, P: int, N: int, chunk: int, xdt: str) -> dict:
@@ -356,12 +422,24 @@ def check_ssd(Bz: int, L: int, H: int, P: int, N: int, chunk: int, xdt: str) -> 
     err = max(float((y - ry).abs().max()), float((hT - rhT).abs().max()))
     n_bytes = (x.numel() * x.element_size() + 4 * (dt.numel() + A.numel() + B.numel()
                + C.numel() + 2 * h0.numel() + y.numel()))
-    b, by = bound_ms(n_bytes, ssd_operations(Bz, L, H, P, N, chunk), "float32")
+    # the kernel's route: split TF32 on the tensor cores over its own
+    # chunk, three products a multiply-add where both operands are float32
+    # (C B^T, C h), two where one is x in bfloat16 (M x, the state update)
+    ops = ssd_operations(Bz, L, H, P, N, SSD_KERNEL_CHUNK)
+    px = 2 if xdt == "bfloat16" else 3
+    b, by = bound_ms(n_bytes, 3 * (ops["CB"] + ops["Ch"])
+                     + px * (ops["Mx"] + ops["update"]), "tf32")
+    # beside it, on this line only, PRs 12-14's bound: float32 on the CUDA
+    # cores at the caller's chunk
+    b32, by32 = bound_ms(n_bytes, sum(ssd_operations(Bz, L, H, P, N, chunk).values()),
+                         "float32")
     return {"kernel": "ssd_scan", "shape": [Bz, L, H, P, N], "chunk": chunk,
             "x_dtype": xdt, "max_abs_err": err, "atol": SSD_ATOL, "ok": err <= SSD_ATOL,
             "kernel_ms": cuda_ms(lambda: ssd_scan(*args, chunk=chunk), 20),
             "plain_ms": cuda_ms(lambda: ssd_scan_ref(*args, chunk=chunk), 5),
-            "library_ms": None, "bound_ms": b, "bound_by": by}
+            "kernel_device_ms": device_profile(lambda: ssd_scan(*args, chunk=chunk))[1],
+            "library_ms": None, "bound_ms": b, "bound_by": by,
+            "bound_fp32_ms": b32, "bound_fp32_by": by32}
 
 
 def check_wkv6(B: int, L: int, H: int, D: int, chunk: int, dt: str) -> dict:
@@ -394,6 +472,7 @@ def check_wkv6(B: int, L: int, H: int, D: int, chunk: int, dt: str) -> dict:
             "rkv_dtype": dt, "max_abs_err": err, "atol": WKV_ATOL, "ok": err <= WKV_ATOL,
             "kernel_ms": cuda_ms(lambda: wkv6(*args, chunk=chunk), 20),
             "plain_ms": cuda_ms(lambda: wkv6_ref(*args, chunk=chunk), 5),
+            "kernel_device_ms": device_profile(lambda: wkv6(*args, chunk=chunk))[1],
             "library_ms": None, "bound_ms": b, "bound_by": by}
 
 
@@ -512,12 +591,13 @@ def busy_ms(spans) -> float:
     return total / 1e3
 
 
-def profile_forward(fn, iters: int = 5, kernels: tuple = ()) -> dict:
+def profile_forward(fn, iters: int = 5, kernels: dict | None = None) -> dict:
     """Host milliseconds of one synchronised call, and the device's busy
     milliseconds in one call from torch.profiler (the union of the device
     activity's intervals; None when the profiler sees none), with the
-    device milliseconds of the kernels whose names contain each of
-    ``kernels``.  The idle share sets the traced call's busy time against
+    device milliseconds of each of ``kernels`` ({name: the fragments of
+    its device kernels' names}), summed over the device kernels whose
+    names contain one of its fragments.  The idle share sets the traced call's busy time against
     the untraced calls' host time: the profiler slows the host (up to 2x
     on a decode step, ``traced_wall_ms``) far more than the device, so the
     traced call's own host time would read the share high.  A call that
@@ -549,7 +629,8 @@ def profile_forward(fn, iters: int = 5, kernels: tuple = ()) -> dict:
            "top_device_ms": {name[:60]: ms for name, ms in top}}
     if kernels:
         out["kernel_device_ms"] = {
-            k: sum(ms for name, ms in by_name.items() if k in name) for k in kernels}
+            k: sum(ms for name, ms in by_name.items() if any(f in name for f in frags))
+            for k, frags in kernels.items()}
     return out
 
 
@@ -742,6 +823,12 @@ F32_ATOL = {"hybrid": 0.01, "rwkv": 1e-3}       # zamba2-1.2b, rwkv6-7b
 # outputs reach ~220 at full width, where the JAX test's 1e-3 would allow
 # 0.22: it takes ten times its H100 reading instead (worst error 1.16e-6 of
 # the output's largest magnitude, over the bf16 and float32 runs).
+# The device kernels each wrapper launches, by fragments of their names
+# in a profiler trace (csrc/*.cu).
+DEVICE_KERNELS = {"flash_attention": ("flash_fwd",),
+                  "decode_attention": ("decode_split", "decode_combine"),
+                  "ssd_scan": ("ssd_chunks", "ssd_step"),
+                  "wkv6_scan": ("wkv6_chunks", "wkv6_steps")}
 F32_KERNEL_ATOL = {"flash_attention": FLASH_ATOL["float32"],
                    "decode_attention": DECODE_ATOL["float32"], "ssd_scan": SSD_ATOL,
                    "wkv6_scan": 1.2e-5}
@@ -879,10 +966,12 @@ def run_decode_path(label: str, cfg, params, n_steps: int, t_start: float, *,
     last = {"tokens": run["fed"][:, -1:]}
     step_profile = profile_forward(
         lambda: decode(params, cache, last, PROMPT + n_steps - 1),
-        kernels=("decode_split", "decode_combine", "ssd_chunks", "wkv6_steps"))
+        kernels={k: DEVICE_KERNELS[k] for k in ("decode_attention", "ssd_scan",
+                                                "wkv6_scan")})
     prefill_profile = profile_forward(
         lambda: steps.build_prefill_step(cfg)(params, {"tokens": prompt}, cache),
-        iters=2, kernels=("flash_fwd", "ssd_chunks", "wkv6_steps"))
+        iters=2, kernels={k: DEVICE_KERNELS[k] for k in ("flash_attention", "ssd_scan",
+                                                         "wkv6_scan")})
     del cache
     # one prefill and one decode step more, each kernel call held to its
     # plain version on the same inputs (outside the count)
@@ -1035,7 +1124,11 @@ def kernel_table(rows: dict, launches: dict) -> list[dict]:
                     "replaces": replaces, "launches": launches[name],
                     "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                    "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+                    "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                    # device times (profiler): event times of short kernels
+                    # carry the host's launch path
+                    "device_ms": r.get("kernel_device_ms"),
+                    "library_device_ms": r.get("library_device_ms")})
     return out
 
 

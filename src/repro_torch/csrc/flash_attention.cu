@@ -59,7 +59,11 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "cp_async.cuh"
+
 namespace {
+
+using cp_async::smem_addr;
 
 constexpr int kBQ = 64;
 constexpr int kBK = 64;
@@ -193,24 +197,6 @@ struct Tile {
   static constexpr size_t kSmem = sizeof(bf16) * 5 * kElems;
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, asynchronously; zero-filled when !in.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool in) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(in ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 __device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
@@ -257,8 +243,8 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
     const int c = tid + i * kThreads;
     const int r = c / T::kChunks, col = (c % T::kChunks) * 8;
     const bool in = r0 + r < S;
-    cp_async16(smem_addr(dst + r * T::kLd + col),
-               src + (in ? (r0 + r) * stride : 0) + col, in);
+    cp_async::copy16(dst + r * T::kLd + col,
+                     src + (in ? (r0 + r) * stride : 0) + col, in);
   }
 }
 
@@ -298,7 +284,7 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   load_tile<D>(sQ, qb, q_row, q0, S, tid);
   load_tile<D>(sK, kb, kv_row, 0, S, tid);
   load_tile<D>(sV, vb, kv_row, 0, S, tid);
-  cp_async_commit();
+  cp_async::commit();
 
   // ldmatrix row offsets of this lane: A (and V^T) tiles take rows
   // (lane & 7) + 8 * ((lane >> 3) & 1) and column half lane >> 4; K's
@@ -322,8 +308,8 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
       load_tile<D>(sV + (st ^ 1) * T::kElems, vb, kv_row, (kt + 1) * kBK, S,
                    tid);
     }
-    cp_async_commit();
-    cp_async_wait<1>();                   // tile kt (and Q) have landed
+    cp_async::commit();
+    cp_async::wait<1>();               // tile kt (and Q) have landed
     __syncthreads();
     const int k0 = kt * kBK;
     const bf16* cK = sK + st * T::kElems;

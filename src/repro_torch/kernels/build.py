@@ -46,7 +46,7 @@ SIGNATURES: dict[str, dict[str, list]] = {
                             + [_P],
     },
     "mamba2_scan": {
-        "ssd_scan": [_P] * 8 + [_I] * 6 + [_I64] * 3 + [_I, _P],
+        "ssd_scan": [_P] * 8 + [_I] * 5 + [_I64] * 3 + [_I, _P],
     },
     "rwkv6_scan": {
         "wkv6_scan": [_P] * 8 + [_I] * 4 + [_I64] * 12 + [_I, _P],
@@ -97,6 +97,9 @@ def build_dir() -> Path:
     for stem in sorted(SIGNATURES):
         h.update(stem.encode())
         h.update((CSRC / f"{stem}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     return BUILD_ROOT / h.hexdigest()[:16]
 
 
@@ -155,6 +158,17 @@ def library(stem: str) -> ctypes.CDLL:
                 _LIBS[s] = cdll
             lib = _LIBS[stem]
         return lib
+
+
+def aligned16(t) -> bool:
+    """Whether each row of ``t`` (its last dimension) starts on a 16-byte
+    boundary wherever the other indices point: the kernels that copy rows
+    in 16-byte pieces need it.  Strides of dimensions of length 1 do not
+    matter."""
+    isz = t.element_size()
+    return (t.data_ptr() % 16 == 0 and t.shape[-1] * isz % 16 == 0
+            and all(s * isz % 16 == 0 for s, n in zip(t.stride()[:-1], t.shape[:-1])
+                    if n > 1))
 
 
 def check(rc: int, what: str) -> None:

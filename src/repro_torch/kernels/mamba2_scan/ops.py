@@ -11,17 +11,12 @@ from __future__ import annotations
 
 import torch
 
-from ..build import check, count_launch, library
+from ..build import aligned16, check, count_launch, library
 from .ref import ssd_scan_ref
 
-SMEM_LIMIT = 232_448                  # bytes of shared memory a CTA can have
+HEAD_DIMS = (32, 64, 128)             # the P the chunk kernel is built for
+STATE_DIMS = (16, 32, 64)             # and the N
 _X_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-
-
-def smem_bytes(P: int, N: int, Lc: int) -> int:
-    """Shared memory of one CTA: state, the chunk's x, B (padded), C, M and
-    three per-step vectors, all float32 (``smem_bytes`` in the source)."""
-    return 4 * (N * P + Lc * P + Lc * (N + 1) + Lc * N + Lc * Lc + 3 * Lc)
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -29,8 +24,11 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              chunk: int = 128):
     """x: (Bz, L, H, P) float32 or bfloat16; dt: (Bz, L, H); A: (H,); B, C:
     (Bz, L, N); h0: (Bz, H, N, P), all float32.  Returns (y (Bz, L, H, P),
-    hT (Bz, H, N, P)), float32.  ``chunk`` is the scan's chunk length; the
-    ragged last chunk needs no padding."""
+    hT (Bz, H, N, P)), float32.  ``chunk`` is the plain version's chunk
+    length; the kernel scans chunks of its own (32 steps), so its result
+    does not depend on it but for rounding.  The kernel takes P in
+    ``HEAD_DIMS`` and N in ``STATE_DIMS``, x's rows and B, C 16-byte
+    aligned (it copies 16-byte pieces)."""
     if x.dim() != 4 or dt.dim() != 3 or B.dim() != 3 or h0.dim() != 4:
         raise ValueError("ssd_scan: want x (Bz,L,H,P), dt (Bz,L,H), B/C (Bz,L,N), "
                          "h0 (Bz,H,N,P)")
@@ -42,7 +40,6 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         raise ValueError(f"ssd_scan: shapes do not fit: x {tuple(x.shape)}, dt "
                          f"{tuple(dt.shape)}, A {tuple(A.shape)}, B {tuple(B.shape)}, "
                          f"C {tuple(C.shape)}, h0 {tuple(h0.shape)}")
-    Lc = min(chunk, L)
     tensors = (x, dt, A, B, C, h0)
     devs = {t.device for t in tensors}
     if devs == {torch.device("cpu")}:
@@ -54,10 +51,14 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                         f"dt/A/B/C/h0; got {[t.dtype for t in tensors]}")
     if x.stride(3) != 1 or not all(t.is_contiguous() for t in tensors[1:]):
         raise ValueError("ssd_scan: x's head dim and dt/A/B/C/h0 must be contiguous")
-    if Lc < 1 or smem_bytes(P, N, Lc) > SMEM_LIMIT:
-        raise ValueError(f"ssd_scan: chunk {Lc} at N={N}, P={P} needs "
-                         f"{smem_bytes(P, N, max(Lc, 1))} bytes of shared memory; "
-                         f"a CTA has {SMEM_LIMIT}")
+    if chunk < 1:
+        raise ValueError(f"ssd_scan: chunk {chunk} < 1")
+    if P not in HEAD_DIMS or N not in STATE_DIMS:
+        raise ValueError(f"ssd_scan: kernel takes P in {HEAD_DIMS} and N in "
+                         f"{STATE_DIMS}, got P={P}, N={N}")
+    if not all(aligned16(t) for t in (x, B, C)):
+        raise ValueError("ssd_scan: x's rows and B, C must be 16-byte aligned "
+                         "(the kernel copies 16-byte pieces)")
     y = torch.empty((Bz, L, H, P), dtype=torch.float32, device=x.device)
     hT = torch.empty((Bz, H, N, P), dtype=torch.float32, device=x.device)
     if L == 0:
@@ -65,7 +66,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     with torch.cuda.device(x.device):
         rc = library("mamba2_scan").ssd_scan(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
-            h0.data_ptr(), y.data_ptr(), hT.data_ptr(), Bz, L, H, P, N, Lc,
+            h0.data_ptr(), y.data_ptr(), hT.data_ptr(), Bz, L, H, P, N,
             x.stride(0), x.stride(1), x.stride(2), _X_DTYPES[x.dtype],
             torch.cuda.current_stream().cuda_stream)
     check(rc, "ssd_scan")

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from ..build import check, count_launch, library
+from ..build import aligned16, check, count_launch, library
 from .ref import wkv6_ref
 
 HEAD_DIMS = (16, 32, 64)               # the D the kernel is built for
@@ -22,8 +22,10 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.Tensor,
     """r, k, v: (B, L, H, D) float32 or bfloat16 (one dtype); logw: (B, L,
     H, D) log decay (< 0); u: (H, D); s0: (B, H, D, D), all float32.
     Returns (y (B, L, H, D), sT (B, H, D, D)), float32.  ``chunk`` is the
-    plain version's chunk length; the kernel walks the steps one by one,
-    so its result does not depend on it."""
+    plain version's chunk length; the kernel scans chunks of its own (16
+    steps, or one step when L = 1), so its result does not depend on it
+    but for rounding.  The kernel takes D in ``HEAD_DIMS`` and every row
+    of r, k, v and logw 16-byte aligned (it copies 16-byte pieces)."""
     if any(t.dim() != 4 for t in (r, k, v, logw, s0)) or u.dim() != 2:
         raise ValueError("wkv6: want r/k/v/logw (B,L,H,D), u (H,D), s0 (B,H,D,D)")
     B, L, H, D = r.shape
@@ -50,6 +52,9 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.Tensor,
     if (any(t.stride(3) != 1 for t in (r, k, v, logw))
             or not (u.is_contiguous() and s0.is_contiguous())):
         raise ValueError("wkv6: r/k/v/logw's head dim and u/s0 must be contiguous")
+    if not all(aligned16(t) for t in (r, k, v, logw)):
+        raise ValueError("wkv6: r/k/v/logw rows must be 16-byte aligned "
+                         "(the kernel copies 16-byte pieces)")
     y = torch.empty((B, L, H, D), dtype=torch.float32, device=r.device)
     sT = torch.empty((B, H, D, D), dtype=torch.float32, device=r.device)
     if L == 0 or B == 0 or H == 0:

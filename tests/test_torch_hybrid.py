@@ -76,15 +76,18 @@ def cuda():
     return torch.device("cuda")
 
 
-def ssd_inputs(Bz, L, H, P, N, seed=42):
+def ssd_inputs(Bz, L, H, P, N, seed=42, decay_sum=None):
     """x, dt, A, B, C, D, h0 as float32 numpy arrays (the value ranges of
-    tests/test_kernels.py)."""
+    tests/test_kernels.py).  With ``decay_sum``, each head's A is scaled so
+    that A dt sums to it over batch row 0's first 128 steps (strong decay)."""
     rng = np.random.default_rng(seed)
 
     def r(*shape, scale=1.0):
         return (rng.standard_normal(shape) * scale).astype(np.float32)
-    return (r(Bz, L, H, P), np.abs(r(Bz, L, H, scale=0.1)), -np.abs(r(H)),
-            r(Bz, L, N, scale=0.3), r(Bz, L, N, scale=0.3), r(H),
+    x, dt, A = r(Bz, L, H, P), np.abs(r(Bz, L, H, scale=0.1)), -np.abs(r(H))
+    if decay_sum is not None:
+        A = (decay_sum / dt[0, :128].sum(0)).astype(np.float32)
+    return (x, dt, A, r(Bz, L, N, scale=0.3), r(Bz, L, N, scale=0.3), r(H),
             r(Bz, H, N, P, scale=0.1))
 
 
@@ -280,22 +283,31 @@ def test_zamba_serving_matches_jax(jx, tmp_path):
 
 # -- the kernel on the card -----------------------------------------------------
 
-CUDA_SSD = [(*s, "float32") for s in SSD_SHAPES] + [
-    (4, 1024, 64, 64, 64, 128, "bfloat16"),   # zamba2-1.2b prefill
-    (4, 1, 64, 64, 64, 1, "bfloat16"),        # zamba2-1.2b decode step
-    (2, 200, 4, 32, 16, 128, "float32"),      # ragged last chunk
+CUDA_SSD = [(*s, "float32", None) for s in SSD_SHAPES] + [
+    (4, 1024, 64, 64, 64, 128, "bfloat16", None),   # zamba2-1.2b prefill
+    (4, 1, 64, 64, 64, 1, "bfloat16", None),        # zamba2-1.2b decode step
+    (2, 200, 4, 32, 16, 128, "float32", None),      # ragged last chunk
+    (4, 1024, 64, 64, 64, 128, "float32", None),    # zamba2-1.2b f32 twin's prefill
+    # L not a multiple of the kernel's chunk (32 steps), L = 1 a decode step
+    *[(2, L, 4, 64, 64, 128, "bfloat16", None) for L in (1, 15, 17, 200)],
+    # strong decay: A dt sums to -200 over 128 steps
+    (2, 256, 4, 64, 64, 128, "float32", -200.0),
+    (4, 1024, 64, 64, 64, 128, "bfloat16", -200.0),
+    *[(2, L, 4, 32, 16, 128, "float32", -200.0) for L in (1, 17)],
 ]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("Bz,L,H,P,N,chunk,xdt", CUDA_SSD)
-def test_cuda_ssd_scan_matches_plain(cuda, Bz, L, H, P, N, chunk, xdt):
-    x, dt, A, B, C, _, h0 = (t.to(cuda) for t in _t(ssd_inputs(Bz, L, H, P, N)))
+@pytest.mark.parametrize("Bz,L,H,P,N,chunk,xdt,decay_sum", CUDA_SSD)
+def test_cuda_ssd_scan_matches_plain(cuda, Bz, L, H, P, N, chunk, xdt, decay_sum):
+    x, dt, A, B, C, _, h0 = (t.to(cuda) for t in
+                             _t(ssd_inputs(Bz, L, H, P, N, decay_sum=decay_sum)))
     x = x.to(getattr(torch, xdt))
     n0 = LAUNCHES["ssd_scan"]
     y, hT = ssd_scan(x, dt, A, B, C, h0, chunk=chunk)
     assert LAUNCHES["ssd_scan"] == n0 + 1
     ry, rhT = ssd_scan_ref(x, dt, A, B, C, h0, chunk=chunk)
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(hT).all())
     torch.testing.assert_close(y, ry, atol=SSD_ATOL, rtol=0)
     torch.testing.assert_close(hT, rhT, atol=SSD_ATOL, rtol=0)
 

@@ -22,6 +22,7 @@ import numpy as np  # noqa: E402
 
 from repro_torch.core.restore import default_fuse_engine, fuse_ws_block  # noqa: E402
 from repro_torch.kernels import gather_pages, mha, scatter_pages  # noqa: E402
+from repro_torch.kernels.build import aligned16  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention_ref, mha_ref  # noqa: E402
 from repro_torch.kernels.page_gather import page_gather_ref, page_scatter_ref  # noqa: E402
 from repro_torch.nn.layers import chunked_attention  # noqa: E402
@@ -179,6 +180,26 @@ def test_mha_rejects_bad_shapes():
         mha(q, torch.zeros(1, 9, 2, 32), torch.zeros(1, 9, 2, 32))   # Sq != Skv
     with pytest.raises(TypeError):
         mha(q, torch.zeros(1, 8, 2, 32), torch.zeros(1, 8, 2, 32).double())
+
+
+ALIGNED16_CASES = {                   # name: (tensor, whether its rows are aligned)
+    "contiguous": (lambda: torch.zeros(4, 8, 2, 64), True),
+    "one float in": (lambda: torch.zeros(4 * 8 * 2 * 64 + 1)[1:].view(4, 8, 2, 64), False),
+    "column slice": (lambda: torch.zeros(4, 8, 2, 128)[..., :64], True),
+    "odd row stride": (lambda: torch.zeros(4, 8, 2, 65)[..., :64], False),
+    "odd stride of a length-1 dim": (
+        lambda: torch.zeros(1024).as_strided((2, 1, 2, 64), (256, 3, 128, 1)), True),
+    "bf16 rows of 8 bytes": (lambda: torch.zeros(2, 3, 4, dtype=torch.bfloat16), False),
+}
+
+
+@pytest.mark.parametrize("case", list(ALIGNED16_CASES))
+def test_aligned16(case):
+    """The rule the scan wrappers (B5, B6) hold their inputs to before a
+    launch: every row the kernels copy in 16-byte pieces starts on a
+    16-byte boundary (strides of length-1 dimensions do not count)."""
+    make, want = ALIGNED16_CASES[case]
+    assert aligned16(make()) is want
 
 
 # -- the kernels on the card ---------------------------------------------------

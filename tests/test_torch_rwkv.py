@@ -77,16 +77,21 @@ def cuda():
     return torch.device("cuda")
 
 
-def wkv_inputs(B_, L, H, D, seed=42):
+def wkv_inputs(B_, L, H, D, seed=42, logw_range=None):
     """r, k, v, logw, u, s0 as float32 numpy arrays (the value ranges of
-    tests/test_kernels.py: log decay -|N(0, 0.5)| - 0.05, u and s0 not 0)."""
+    tests/test_kernels.py: log decay -|N(0, 0.5)| - 0.05, u and s0 not 0).
+    With ``logw_range`` (lo, hi), the log decay is uniform in it instead
+    (strong decay)."""
     rng = np.random.default_rng(seed)
 
     def r(*shape, scale=1.0):
         return (rng.standard_normal(shape) * scale).astype(np.float32)
-    return (r(B_, L, H, D), r(B_, L, H, D, scale=0.3), r(B_, L, H, D),
-            -np.abs(r(B_, L, H, D, scale=0.5)) - 0.05, r(H, D, scale=0.2),
-            r(B_, H, D, D, scale=0.1))
+    out = [r(B_, L, H, D), r(B_, L, H, D, scale=0.3), r(B_, L, H, D),
+           -np.abs(r(B_, L, H, D, scale=0.5)) - 0.05, r(H, D, scale=0.2),
+           r(B_, H, D, D, scale=0.1)]
+    if logw_range is not None:
+        out[3] = rng.uniform(*logw_range, (B_, L, H, D)).astype(np.float32)
+    return tuple(out)
 
 
 def _t(arrs):
@@ -315,23 +320,32 @@ def test_rwkv_serving_matches_jax(jx, tmp_path):
 
 # -- the kernel on the card -----------------------------------------------------
 
-CUDA_WKV = [(*s, "float32") for s in WKV_SHAPES] + [
-    (4, 1024, 64, 64, 32, "bfloat16"),   # rwkv6-7b prefill
-    (4, 1, 64, 64, 1, "bfloat16"),       # rwkv6-7b decode step
-    (2, 200, 4, 32, 32, "float32"),      # ragged last tile
-    (2, 96, 8, 16, 16, "bfloat16"),
+CUDA_WKV = [(*s, "float32", None) for s in WKV_SHAPES] + [
+    (4, 1024, 64, 64, 32, "bfloat16", None),   # rwkv6-7b prefill
+    (4, 1, 64, 64, 1, "bfloat16", None),       # rwkv6-7b decode step
+    (2, 200, 4, 32, 32, "float32", None),      # ragged last tile
+    (2, 96, 8, 16, 16, "bfloat16", None),
+    (4, 1024, 64, 64, 32, "float32", None),    # rwkv6-7b f32 twin's prefill
+    # L not a multiple of the kernel's chunk (16 steps), L = 1 a decode step
+    *[(2, L, 4, 64, 32, "bfloat16", None) for L in (1, 15, 17, 200)],
+    # strong decay: log decay uniform in [-30, -5] per step
+    (2, 200, 4, 64, 32, "float32", (-30.0, -5.0)),
+    (4, 1024, 64, 64, 32, "bfloat16", (-30.0, -5.0)),
+    *[(2, L, 4, 32, 32, "float32", (-30.0, -5.0)) for L in (1, 17)],
 ]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B_,L,H,D,chunk,dt", CUDA_WKV)
-def test_cuda_wkv6_matches_plain(cuda, B_, L, H, D, chunk, dt):
-    r, k, v, logw, u, s0 = (t.to(cuda) for t in _t(wkv_inputs(B_, L, H, D)))
+@pytest.mark.parametrize("B_,L,H,D,chunk,dt,logw_range", CUDA_WKV)
+def test_cuda_wkv6_matches_plain(cuda, B_, L, H, D, chunk, dt, logw_range):
+    r, k, v, logw, u, s0 = (t.to(cuda) for t in
+                            _t(wkv_inputs(B_, L, H, D, logw_range=logw_range)))
     r, k, v = (t.to(getattr(torch, dt)) for t in (r, k, v))
     n0 = LAUNCHES["wkv6_scan"]
     y, sT = wkv6(r, k, v, logw, u, s0, chunk=chunk)
     assert LAUNCHES["wkv6_scan"] == n0 + 1
     ry, rsT = wkv6_ref(r, k, v, logw, u, s0, chunk=chunk)
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(sT).all())
     torch.testing.assert_close(y, ry, atol=WKV_ATOL, rtol=0)
     torch.testing.assert_close(sT, rsT, atol=WKV_ATOL, rtol=0)
 
