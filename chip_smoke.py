@@ -8,25 +8,33 @@ Phases, one JSON line each (any failure raises and exits non-zero):
 1. environment: the card, its power limit (``nvidia-smi``) and versions;
 2. build: every kernel of ``src/repro_torch/csrc`` compiled with ``nvcc``
    for ``sm_90a`` (into ``build/repro_torch/``), then the scan kernels'
-   registers, shared memory, spills, tensor-core instructions and CTAs
-   per SM;
+   registers, shared memory, spills and tensor-core instructions;
 3. kernel checks: each kernel against its plain PyTorch version on the
    card at the main path's shapes, with its time, the plain version's,
    one library call's (a yardstick the port never calls) and its bound;
 4. main path: full-width olmo-1b served through ``Orchestrator`` and
    ``Router`` -- register, a record request, scale to zero, a single cold
    start, a group restore of two, warm requests -- with the logits held
-   to each other and to the plain versions on the card;
-5. decode paths through ``launch.steps``: full-width olmo-1b (bfloat16
+   to each other and to the plain versions on the card; then the group
+   fuse's engines side by side;
+5. fleet path: two spawned node processes (``build_fleet(...,
+   transport="socket")``) over the same store serve a two-wide REAP cold
+   burst, one cold start each with the WS crossing the process boundary,
+   and three warm requests; logits held bitwise to the main path's, with
+   each request's split, each node's transport stats and launch counts,
+   one ``StatsSnapshotter`` sample, the spawn time, and the host's peak
+   memory (the resident sets of parent and children summed, and the
+   host's memory in use, which counts a shared page once);
+6. decode paths through ``launch.steps``: full-width olmo-1b (bfloat16
    and int8 KV cache), zamba2-1.2b and rwkv6-7b (bfloat16, and a float32
    twin of each) prefill a 4 x 1024 prompt and decode greedily, each step
    held to a teacher-forced forward and to a run through the plain
    versions (the bfloat16 zamba2 and rwkv6 runs excepted: see
    ``F32_ATOL``), and each kernel call of a prefill and a decode step held
    to its plain version on the model's own inputs;
-6. the launch counts of each path (counts set to 0 just before it, read
-   just after), the kernel table, and the last line
-   ``{"ok": true, "device": {...}}``.
+7. the launch counts of each path (counts set to 0 just before it, read
+   just after; the fleet path's from its children), the kernel table,
+   and the last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a result when no CUDA device is usable, or when the
 port's sources are not beside this file.
@@ -324,22 +332,27 @@ def check_flash(B: int, S: int, H: int, KV: int, D: int, dtype: str) -> dict:
             "bound_ms": b, "bound_by": by}
 
 
-def device_profile(fn, calls: int = 10) -> tuple[list[str], float]:
+def device_profile(fn, calls: int = 10, attempts: int = 3) -> tuple[list[str], float]:
     """The names of the device kernels ``fn`` runs, and its device
     milliseconds a call (its kernels' and copies' spans, summed, over
     ``calls`` traced calls): unlike CUDA-event times, these leave out the
-    host's launch overhead."""
+    host's launch overhead.  A trace that caught no device span is taken
+    again, up to ``attempts`` traces; then it raises, so a missed capture
+    never reads as 0 ms."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    spans = device_spans(prof)
-    ms = sum(e.time_range.end - e.time_range.start for e in spans) / 1e3 / calls
-    return sorted({e.name for e in spans}), ms
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        spans = device_spans(prof)
+        if spans:
+            ms = sum(e.time_range.end - e.time_range.start for e in spans) / 1e3 / calls
+            return sorted({e.name for e in spans}), ms
+    raise RuntimeError(f"the profiler caught no device span in {attempts} traces")
 
 
 def check_decode(B: int, S: int, H: int, KV: int, D: int, dtype: str,
@@ -724,7 +737,7 @@ def run_main_path(cfg, device: str, store: str, batch: dict, t_start: float) -> 
         # deploy warm-up, record, single cold, 2 group, 3 warm, the profile
         forwards = 8 + prof["calls"]
         return {"ws_pages": ws_pages, "base": os.path.join(store, FUNCTION),
-                "forwards": forwards}
+                "forwards": forwards, "cold": cold.cpu(), "warm": warm[0].cpu()}
     finally:
         for inst in group:
             inst.reclaim()
@@ -779,7 +792,156 @@ def phase_fuse_engines(base: str) -> dict:
     return res
 
 
-# -- phase 5: decode paths ---------------------------------------------------
+# -- phase 5: fleet path -----------------------------------------------------
+
+FLEET_NODES = 2
+FLEET_WAIT_S = 900.0                 # bound on each wait for one request
+# One slot per node: the burst's second request finds the owner busy
+# (score w_owner + w_ws - w_load x 1/1 = 0) and goes to the other node,
+# so each node serves one cold start; no node restores a group.
+FLEET_ROUTER = dict(max_concurrency=1, max_instances_per_function=1,
+                    queue_depth=8, batch_restore_limit=1)
+
+
+class FleetClient:
+    """The fleet as the load generators see a router (``submit`` and
+    ``invoke``), keeping each invocation so its logits and node can be
+    read, and bounding every wait by ``wait_s``."""
+
+    def __init__(self, fleet, wait_s: float):
+        self.fleet, self.wait_s, self.invs = fleet, wait_s, []
+
+    def submit(self, name: str, batch: dict):
+        import types
+        inv = self.fleet.submit(name, batch)
+        self.invs.append(inv)
+        return types.SimpleNamespace(
+            result=lambda timeout=None: inv.result(timeout or self.wait_s))
+
+    def invoke(self, name: str, batch: dict):
+        return self.submit(name, batch).result()
+
+
+def phase_fleet_path(cfg, device: str, store: str, batch: dict, main_res: dict,
+                     t_start: float) -> dict:
+    """Two spawned child processes, one node each (``build_fleet(...,
+    transport="socket")``), serve ``FUNCTION`` over the main path's store:
+    register (snapshot and WS record exist, so nothing is built), warm the
+    owner shard's L1 (``rebalance``), a two-wide cold burst through
+    ``OpenLoopGenerator`` -- one REAP cold start on each node, the
+    non-owner's WS fetched from the owner across the process boundary --
+    then three warm requests through ``ClosedLoopGenerator``.  Cold and
+    warm logits are held bitwise to the main path's, the non-owner must
+    show a remote fetch with bytes on the wire, and each child's
+    ``flash_attention`` launches must be n_layers per forward it served.
+    Returns the children's launch counts, summed."""
+    import torch
+    from repro_torch.cluster import ScheduleConfig, build_fleet
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.serving import (ClosedLoopGenerator, OpenLoopGenerator,
+                                     RouterConfig, ServeConfig, uniform_trace)
+    from repro_torch.telemetry import StatsSnapshotter
+
+    def line(**kw):
+        emit({"phase": "fleet_path", "t": time.perf_counter() - t_start, **kw})
+    config = ServeConfig(device=device, transport="socket",
+                         router=RouterConfig(**FLEET_ROUTER))
+    pids: list[int] = []
+    with host_peak({}, pids=pids) as peak:
+        t0 = time.perf_counter()
+        fleet = build_fleet(FLEET_NODES, store, config=config,
+                            cfg=ScheduleConfig(seed=SEED))
+        try:
+            pids += [n._proc.pid for n in fleet.nodes.values()]
+            # answers once every child has its node and page server; a child
+            # that died (no usable card, say) is missing from it
+            up = sorted(fleet.stats()["nodes"])
+            line(step="spawn", nodes=up, seconds=time.perf_counter() - t0)
+            if up != sorted(fleet.nodes):
+                raise AssertionError(f"node processes up: {up} of {sorted(fleet.nodes)}")
+            t0 = time.perf_counter()
+            fleet.register(FUNCTION, cfg, seed=SEED, warmup_batch=batch)
+            line(step="register", seconds=time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            warmed = fleet.rebalance()
+            owner = fleet.ring.owner(FUNCTION)
+            line(step="rebalance", seconds=time.perf_counter() - t0, owner=owner,
+                 owners_warmed=warmed[FUNCTION])
+            # counts from here on: launches (parent and children), transport
+            fleet.reset_stats()
+            reset_launches()
+            client = FleetClient(fleet, FLEET_WAIT_S)
+            t0 = time.perf_counter()
+            OpenLoopGenerator(client, uniform_trace(2, 0.0, [FUNCTION], seed=SEED),
+                              lambda ev: batch).run()
+            line(step="cold_burst", seconds=time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            ClosedLoopGenerator(client, uniform_trace(3, 0.0, [FUNCTION], seed=SEED),
+                                lambda ev: batch, n_clients=1).run()
+            line(step="warm_requests", seconds=time.perf_counter() - t0)
+            stats = fleet.stats()
+            snap = StatsSnapshotter(path=None)
+            snap.add_source("fleet", lambda: stats)
+            line(step="snapshot", sample=snap.sample())
+        finally:
+            fleet.close()
+    parent = dict(LAUNCHES)
+    served: dict[str, int] = {}
+    shape = (*REQUEST, cfg.vocab)
+    for i, inv in enumerate(client.invs):
+        logits, rep = inv.result(FLEET_WAIT_S)
+        node = inv.node_ids[-1]
+        served[node] = served.get(node, 0) + 1
+        label = f"cold_{i}" if i < 2 else f"warm_{i - 2}"
+        line(step=label, node=node, **split(rep))
+        check_logits(f"fleet {label}", logits, shape)
+        want = main_res["cold"] if i < 2 else main_res["warm"]
+        if not torch.equal(logits, want):
+            raise AssertionError(f"fleet {label} logits (node {node}) != the main "
+                                 f"path's {'single-cold' if i < 2 else 'warm'} logits")
+        if i < 2 and rep.n_prefetched_pages != main_res["ws_pages"]:
+            raise AssertionError(f"fleet {label} on {node} was not a REAP cold start")
+    cold_nodes = sorted(inv.node_ids[-1] for inv in client.invs[:2])
+    if cold_nodes != sorted(fleet.nodes):
+        raise AssertionError(f"cold starts on {cold_nodes}: want one on each node")
+    launches: dict[str, int] = {}
+    for node, ns in stats["nodes"].items():
+        tr = ns["transport"]
+        plane = ("shm" if tr.get("shm_bytes") or tr["shm_responses"] else
+                 "inline" if tr.get("inline_bytes") or tr["inline_responses"] else None)
+        line(step="transport", node=node, owner=node == owner, plane=plane,
+             **{k: tr.get(k) for k in ("wire_tx_bytes", "wire_rx_bytes", "shm_bytes",
+                                       "inline_bytes", "remote_fetches", "origin_reads",
+                                       "dead_owner_fallbacks", "chunks_served")},
+             fetch_rtt_p50_s=tr["fetch_rtt_s"]["p50"],
+             fetch_rtt_p95_s=tr["fetch_rtt_s"]["p95"],
+             fetch_wait_p50_s=tr["fetch_wait_s"]["p50"],
+             fetch_wait_p95_s=tr["fetch_wait_s"]["p95"],
+             serve_prep_p50_s=tr["serve_prep_s"]["p50"],
+             serve_prep_p95_s=tr["serve_prep_s"]["p95"])
+        if node != owner and not (tr["remote_fetches"] >= 1 and tr["wire_rx_bytes"] > 0):
+            raise AssertionError(f"non-owner {node} fetched no WS across the process "
+                                 f"boundary: {tr}")
+        got = ns["kernel_launches"]
+        line(step="launch_counts", node=node, forwards=served.get(node, 0),
+             kernel_launches=got)
+        if got["flash_attention"] != cfg.n_layers * served.get(node, 0):
+            raise AssertionError(f"{node}: flash_attention launched "
+                                 f"{got['flash_attention']} times, want {cfg.n_layers} "
+                                 f"x {served.get(node, 0)} forwards")
+        for k, n in got.items():
+            launches[k] = launches.get(k, 0) + n
+    if any(parent.values()):
+        raise AssertionError(f"the parent launched kernels in the fleet path: {parent}")
+    line(step="done", host_rss_sum_peak_gb=peak["host_peak_gb"],
+         host_rss_sum_start_gb=peak["host_start_gb"],
+         host_used_peak_gb=peak["host_used_peak_gb"],
+         host_used_start_gb=peak["host_used_start_gb"],
+         cold_eq_main_single_cold=True, warm_eq_main_warm=True)
+    return launches
+
+
+# -- phase 6: decode paths ---------------------------------------------------
 
 DEVICE = "cuda"
 DECODE_BATCH, PROMPT, DECODE_STEPS, INT8_STEPS, F32_STEPS = 4, 1024, 32, 8, 8
@@ -1069,21 +1231,48 @@ def phase_decode_paths(t_start: float) -> dict:
 
 
 @contextlib.contextmanager
-def host_peak(out: dict, every_s: float = 0.02):
+def host_peak(out: dict, every_s: float = 0.02, pids: list | None = None):
     """Samples the process's resident set (``/proc/self/statm``) every
     ``every_s`` seconds within the block and sets ``out["host_start_gb"]``
     and ``out["host_peak_gb"]`` to the first and the largest sample (None
-    where the host offers no statm)."""
+    where the host offers no statm).  With ``pids`` (a list the block may
+    fill), a sample is the sum over this process and those, so pages two
+    of them share (shared memory, the page cache) count once for each;
+    ``out["host_used_start_gb"]`` and ``out["host_used_peak_gb"]`` then
+    also give the whole host's memory in use (``/proc/meminfo``'s MemTotal
+    less MemAvailable), where a shared page counts once."""
     import threading
-    page, seen, stop = os.sysconf("SC_PAGE_SIZE"), [], threading.Event()
+    page, seen, used, stop = os.sysconf("SC_PAGE_SIZE"), [], [], threading.Event()
+
+    def rss(pid) -> int:
+        with open(f"/proc/{pid}/statm") as f:
+            return int(f.read().split()[1]) * page
+
+    def in_use() -> int:
+        kb = {}
+        with open("/proc/meminfo") as f:
+            for ln in f:
+                key, val = ln.split(":", 1)
+                kb[key] = int(val.split()[0])
+        return (kb["MemTotal"] - kb["MemAvailable"]) * 1024
 
     def sample():
         while True:
             try:
-                with open("/proc/self/statm") as f:
-                    seen.append(int(f.read().split()[1]) * page)
+                total = rss("self")
             except (OSError, ValueError, IndexError):
                 return
+            for pid in list(pids or ()):
+                try:
+                    total += rss(pid)
+                except (OSError, ValueError, IndexError):
+                    pass                 # a child not started yet or gone
+            seen.append(total)
+            if pids is not None:
+                try:
+                    used.append(in_use())
+                except (OSError, ValueError, KeyError):
+                    pass
             if stop.wait(every_s):
                 return
     t = threading.Thread(target=sample, daemon=True)
@@ -1095,6 +1284,9 @@ def host_peak(out: dict, every_s: float = 0.02):
         t.join()
         out["host_start_gb"] = seen[0] / 1e9 if seen else None
         out["host_peak_gb"] = max(seen) / 1e9 if seen else None
+        if pids is not None:
+            out["host_used_start_gb"] = used[0] / 1e9 if used else None
+            out["host_used_peak_gb"] = max(used) / 1e9 if used else None
 
 
 def _leaves(tree):
@@ -1173,12 +1365,15 @@ def main() -> int:
         emit({"phase": "launch_counts", "path": "serving", "kernel_launches": launches,
               "forwards": n_forwards})
         phase_fuse_engines(main_res["base"])
+        fleet_launches = phase_fleet_path(cfg, "cuda", store, batch, main_res, t_start)
+        emit({"phase": "launch_counts", "path": "fleet", "kernel_launches": fleet_launches})
     finally:
         shutil.rmtree(store, ignore_errors=True)
     torch.cuda.empty_cache()
     decode_launches = phase_decode_paths(t_start)
     emit({"phase": "launch_counts", "path": "decode", "kernel_launches": decode_launches})
-    launches = {k: n + decode_launches.get(k, 0) for k, n in launches.items()}
+    launches = {k: n + fleet_launches.get(k, 0) + decode_launches.get(k, 0)
+                for k, n in launches.items()}
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "flash_library_kernels": rows["flash_attention"]["library_kernels"]})
     print(env["nvidia_smi"], flush=True)

@@ -1,8 +1,13 @@
 """ServeConfig: the one composed entrypoint for the serving stack.
 
-The JAX package's ServeConfig, cut to what this slice serves: the REAP and
-overlapped-restore knobs, the instance pools, the router's config, and the
-``device`` every instance computes on.  The overlap knobs
+The JAX package's ServeConfig, field for field, plus the ``device`` every
+instance computes on: the REAP and overlapped-restore knobs, the instance
+pools, the router's config, the optional control and cluster planes
+(prewarm policy, fleet demand, shard network model), telemetry, and the
+page transport of a fleet.  It is consumed by
+:class:`~repro_torch.serving.Orchestrator`,
+:class:`~repro_torch.cluster.WorkerNode` and
+:func:`~repro_torch.cluster.build_fleet`.  The overlap knobs
 (``overlap_install``, ``hot_prefix_frac``, ``tail_workers``,
 ``tail_deadline_s``) are folded into the effective
 :class:`~repro_torch.core.ReapConfig` by :meth:`ServeConfig.resolved_reap`;
@@ -41,6 +46,22 @@ class ServeConfig:
     # typed Any to keep this module import-cycle-free (router.py imports
     # orchestrator.py which imports this module)
     router: Optional[Any] = None     # serving.RouterConfig
+    # -- optional control/cluster planes -------------------------------
+    policy: Optional[Any] = None     # serving.PolicyConfig (prewarm loop)
+    demand: Optional[Any] = None     # cluster.DemandConfig (fleet forecasts)
+    transfer: Optional[Any] = None   # cluster.TransferModel (shard network)
+    # -- observability ---------------------------------------------------
+    # telemetry.TelemetryConfig: enables the periodic StatsSnapshotter
+    # (fleet-wide via build_fleet; per-node too with ``per_node=True``)
+    telemetry: Optional[Any] = None
+    # -- page transport (cluster fleets; repro_torch.transport) ---------
+    # "inproc": threads in one heap, TransferModel-modeled copies.
+    # "socket": process-per-node fleet moving chunks over Unix-domain
+    # sockets / shared memory (build_fleet dispatches).
+    transport: str = "inproc"
+    transport_compress: bool = False   # per-chunk wire compression (codec)
+    transport_shm: bool = True         # shm data plane when available
+    transport_inline_max: int = 64 << 10  # <= this many bytes ride inline
     # -- compute ---------------------------------------------------------
     device: str = "cuda"
 
