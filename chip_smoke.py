@@ -25,14 +25,23 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    one ``StatsSnapshotter`` sample, the spawn time, and the host's peak
    memory (the resident sets of parent and children summed, and the
    host's memory in use, which counts a shared page once);
-6. decode paths through ``launch.steps``: full-width olmo-1b (bfloat16
-   and int8 KV cache), zamba2-1.2b and rwkv6-7b (bfloat16, and a float32
-   twin of each) prefill a 4 x 1024 prompt and decode greedily, each step
-   held to a teacher-forced forward and to a run through the plain
-   versions (the bfloat16 zamba2 and rwkv6 runs excepted: see
-   ``F32_ATOL``), and each kernel call of a prefill and a decode step held
-   to its plain version on the model's own inputs;
-7. the launch counts of each path (counts set to 0 just before it, read
+6. MoE invocation: deepseek-moe-16b at full width and 3 layers, its
+   snapshot built, then one invocation per request on a fresh arena, the
+   executor routing each group on the true activations and faulting only
+   the routed experts' pages (held to the routed ids, to each other and
+   to a warm forward);
+7. decode paths through ``launch.steps``: full-width olmo-1b (bfloat16
+   and int8 KV cache), zamba2-1.2b, rwkv6-7b and deepseek-moe-16b
+   (bfloat16, and a float32 twin of each), pixtral-12b (8 of its 40
+   layers, 1024 patch embeddings before the tokens) and
+   seamless-m4t-medium (128 frames through the bidirectional encoder)
+   prefill 4 x 1024 tokens and decode greedily, each step held to a
+   teacher-forced forward and to a run through the plain versions (the
+   bfloat16 zamba2, rwkv6 and deepseek runs excepted: see ``F32_ATOL``;
+   the MoE runs route as their kernel run did, ``RouteLog``), and each
+   kernel call of a prefill and a decode step held to its plain version
+   on the model's own inputs;
+8. the launch counts of each path (counts set to 0 just before it, read
    just after; the fleet path's from its children), the kernel table,
    and the last line ``{"ok": true, "device": {...}}``.
 
@@ -55,16 +64,18 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM, NVIDIA data sheet
 PEAK_OPS_PER_S = {"bfloat16": 989e12, "tf32": 495e12,   # tensor cores, dense
                   "float32": 67e12}                        # CUDA cores
-FLASH_CASES = [                      # (B, S, H, KV, D, dtype)
-    (2, 256, 4, 2, 64, "float32"),   # the four shapes of tests/test_kernels.py
-    (1, 128, 8, 8, 128, "float32"),
-    (2, 384, 6, 2, 80, "float32"),
-    (1, 256, 4, 1, 64, "bfloat16"),
-    (1, 64, 16, 16, 128, "bfloat16"),     # olmo-1b, the serving request
-    (1, 2048, 16, 16, 128, "bfloat16"),   # olmo-1b, a long prompt
-    (4, 1024, 16, 16, 128, "bfloat16"),   # olmo-1b prefill: the kernel table's row
-    (4, 1056, 16, 16, 128, "bfloat16"),   # olmo-1b teacher-forced forward (ragged)
-    (4, 1024, 32, 32, 64, "bfloat16"),    # zamba2-1.2b prefill
+FLASH_CASES = [                      # (B, S, H, KV, D, dtype, causal)
+    (2, 256, 4, 2, 64, "float32", True),   # the four shapes of tests/test_kernels.py
+    (1, 128, 8, 8, 128, "float32", True),
+    (2, 384, 6, 2, 80, "float32", True),
+    (1, 256, 4, 1, 64, "bfloat16", True),
+    (1, 64, 16, 16, 128, "bfloat16", True),     # olmo-1b, the serving request
+    (1, 2048, 16, 16, 128, "bfloat16", True),   # olmo-1b, a long prompt
+    (4, 1024, 16, 16, 128, "bfloat16", True),   # olmo-1b prefill: the kernel table's row
+    (4, 1056, 16, 16, 128, "bfloat16", True),   # olmo-1b teacher-forced forward (ragged)
+    (4, 1024, 32, 32, 64, "bfloat16", True),    # zamba2-1.2b prefill
+    (4, 128, 16, 16, 64, "bfloat16", False),    # seamless-m4t-medium's encoder
+    (4, 128, 16, 16, 64, "float32", False),     # (bidirectional), bf16 and f32
 ]
 FLASH_ROW = (4, 1024, 16, 16, 128)      # B3's row of the kernel table
 FLASH_ATOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -74,6 +85,7 @@ DECODE_CASES = [                     # (B, S, H, KV, D, dtype, kv_len or None = 
     (3, 512, 16, 2, 80, "float32", None),
     (4, 1056, 16, 16, 128, "bfloat16", 1056),   # olmo-1b, the last decode step
     (4, 1056, 32, 32, 64, "bfloat16", 1056),    # zamba2-1.2b, the last decode step
+    (4, 132, 16, 16, 64, "bfloat16", 128),      # seamless-m4t-medium's cross cache
 ]
 SSD_CASES = [                        # (Bz, L, H, P, N, chunk, x dtype)
     (2, 256, 4, 64, 64, 64, "float32"),      # the three shapes of tests/test_kernels.py
@@ -289,7 +301,8 @@ def check_scatter(n: int, row_bytes: int, iters: int) -> dict:
     return res
 
 
-def check_flash(B: int, S: int, H: int, KV: int, D: int, dtype: str) -> dict:
+def check_flash(B: int, S: int, H: int, KV: int, D: int, dtype: str,
+                causal: bool) -> dict:
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -302,31 +315,35 @@ def check_flash(B: int, S: int, H: int, KV: int, D: int, dtype: str) -> dict:
                                 ).to("cuda", tdt)
     q, k, v = r(B, S, H, D), r(B, S, KV, D), r(B, S, KV, D)
 
+    def kernel():
+        return mha(q, k, v, causal=causal)
+
     def plain():
-        return mha_ref(q, k, v)
+        return mha_ref(q, k, v, causal=causal)
 
     def library():
         return F.scaled_dot_product_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            is_causal=True, enable_gqa=H != KV)
-    out = mha(q, k, v)
+            is_causal=causal, enable_gqa=H != KV)
+    out = kernel()
     ref = plain()
     torch.cuda.synchronize()
     err = float((out.float() - ref.float()).abs().max())
     n_bytes = (q.numel() * 2 + k.numel() * 2) * q.element_size()
-    n_ops = 4 * B * H * D * S * (S + 1) // 2     # QK^T and PV, causal half
+    # QK^T and PV: the causal half, or every pair
+    n_ops = 4 * B * H * D * (S * (S + 1) // 2 if causal else S * S)
     b, by = bound_ms(n_bytes, n_ops, dtype)
     library_kernels, library_device_ms = device_profile(library)
-    return {"kernel": "flash_attention", "shape": [B, S, H, KV, D],
+    return {"kernel": "flash_attention", "shape": [B, S, H, KV, D], "causal": causal,
             "dtype": dtype, "max_abs_err": err, "atol": FLASH_ATOL[dtype],
             "ok": err <= FLASH_ATOL[dtype],
             # outputs that differ from the plain version's at all (in bf16:
             # those whose rounding flipped)
             "differing_share": float((out != ref).float().mean()),
-            "kernel_ms": cuda_ms(lambda: mha(q, k, v), 50),
+            "kernel_ms": cuda_ms(kernel, 50),
             "plain_ms": cuda_ms(plain, 20 if S <= 512 else 5),
             "library_ms": cuda_ms(library, 50),
-            "kernel_device_ms": device_profile(lambda: mha(q, k, v))[1],
+            "kernel_device_ms": device_profile(kernel)[1],
             "library_kernels": library_kernels,
             "library_device_ms": library_device_ms,
             "bound_ms": b, "bound_by": by}
@@ -507,7 +524,7 @@ def phase_kernel_checks(ws_pages: int) -> dict:
         if not res["ok"]:
             raise AssertionError(f"flash_attention {case}: max abs err "
                                  f"{res['max_abs_err']} > {res['atol']}")
-        if case[:5] == FLASH_ROW:
+        if case[:5] == FLASH_ROW and case[6]:
             rows["flash_attention"] = res
     for fn, cases, name, row_case in (
             (check_decode, DECODE_CASES, "decode_attention", DECODE_CASES[3]),
@@ -941,7 +958,7 @@ def phase_fleet_path(cfg, device: str, store: str, batch: dict, main_res: dict,
     return launches
 
 
-# -- phase 6: decode paths ---------------------------------------------------
+# -- phase 7: decode paths ---------------------------------------------------
 
 DEVICE = "cuda"
 DECODE_BATCH, PROMPT, DECODE_STEPS, INT8_STEPS, F32_STEPS = 4, 1024, 32, 8, 8
@@ -977,7 +994,13 @@ INT8_REL = 0.04
 # shows the same nudge moving bfloat16 logits by more than four ulps at
 # d_model 1536 and 32 layers, and float32 ones by under 1e-3; it is held
 # the same way, through its float32 twin (30 GB of params).
-F32_ATOL = {"hybrid": 0.01, "rwkv": 1e-3}       # zamba2-1.2b, rwkv6-7b
+# deepseek-moe-16b in bfloat16 routes 7% of its decisions otherwise in the
+# plain run than in the kernel run (near ties, ``RouteLog``; 8,365 of
+# 114,048 on the H100), so it too is held through a float32 twin, of its
+# first 8 layers, routed as its kernel run was: within 2e-4 of the plain
+# run, ten times its H100 reading (1.63e-5), rounded up.
+F32_ATOL = {"hybrid": 0.01, "rwkv": 1e-3,       # zamba2-1.2b, rwkv6-7b
+            "moe": 2e-4}                        # deepseek-moe-16b
 # Kernel calls held to their plain versions on the model's inputs:
 # bfloat16 outputs within KERNEL_ULPS ulps at their largest magnitude,
 # float32 ones within the given tolerance, scaled by that magnitude where
@@ -996,10 +1019,20 @@ F32_KERNEL_ATOL = {"flash_attention": FLASH_ATOL["float32"],
                    "wkv6_scan": 1.2e-5}
 
 
-def attention_layers(cfg) -> int:
+def flash_per_pass(cfg) -> int:
+    """B3 launches of one prefill or forward: each self-attention layer over
+    the prompt (an encoder's layers too)."""
     if cfg.family == "hybrid":
         return cfg.n_layers // cfg.attn_every
-    return cfg.n_layers if cfg.family == "dense" else 0
+    if cfg.family == "encdec":
+        return (cfg.n_enc_layers or cfg.n_layers) + cfg.n_layers
+    return cfg.n_layers if cfg.family in ("dense", "vlm", "moe") else 0
+
+
+def decode_per_step(cfg) -> int:
+    """B4 launches of one decode step: each self-attention layer over its
+    cache, and a decoder layer's cross-attention over its frames."""
+    return 2 * cfg.n_layers if cfg.family == "encdec" else flash_per_pass(cfg)
 
 
 def mamba_layers(cfg) -> int:
@@ -1064,23 +1097,50 @@ def float32_tree(tree):
     return tree.float() if tree.is_floating_point() else tree
 
 
-def generate(cfg, params, prompt, n_steps: int, *, plain: bool = False,
-             forced=None, float32: bool = False) -> dict:
-    """Prefill ``prompt`` into a fresh cache, then ``n_steps`` decode steps:
-    greedy, or fed ``forced`` (B, n_steps) tokens.  Returns each step's
-    logits (prefill first), the tokens fed, seconds, and the cache."""
+def sync() -> None:
+    """Wait for the card (nothing to wait for where ``DEVICE`` is the CPU)."""
+    import torch
+    if torch.device(DEVICE).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def make_prompt(cfg) -> dict:
+    """The decode paths' prompt, from numpy seed ``SEED``, on ``DEVICE``:
+    ``DECODE_BATCH`` x ``PROMPT`` tokens, after ``n_patches`` patch
+    embeddings for a VLM, with ``PROMPT // frame_stride`` frame embeddings
+    for an encoder-decoder (``launch.steps.make_batch``: the tokens are a
+    direct ``integers`` draw from the seed, whatever the family)."""
     import torch
     from repro_torch.launch import steps
-    B = prompt.shape[0]
-    cache = steps.init_cache(cfg, B, prompt.shape[1] + n_steps, DEVICE)
+    seq = PROMPT + (cfg.n_patches if cfg.family == "vlm" else 0)
+    batch = steps.make_batch(cfg, seq, DECODE_BATCH, "prefill", SEED)
+    return {k: torch.from_numpy(v).to(DEVICE) for k, v in batch.items()}
+
+
+def trunk_len(prompt: dict) -> int:
+    """The cache positions a prompt fills: its tokens, after its patches."""
+    patches = prompt.get("patch_embeds")
+    return prompt["tokens"].shape[1] + (0 if patches is None else patches.shape[1])
+
+
+def generate(cfg, params, prompt: dict, n_steps: int, *, plain: bool = False,
+             forced=None, float32: bool = False) -> dict:
+    """Prefill ``prompt`` (``make_prompt``'s inputs) into a fresh cache,
+    then ``n_steps`` decode steps: greedy, or fed ``forced`` (B, n_steps)
+    tokens.  Returns each step's logits (prefill first), the tokens fed,
+    seconds, and the cache."""
+    import torch
+    from repro_torch.launch import steps
+    B, P = prompt["tokens"].shape[0], trunk_len(prompt)
+    cache = steps.init_cache(cfg, B, P + n_steps, DEVICE)
     if float32:
         cache = float32_tree(cache)
     prefill = steps.build_prefill_step(cfg)
     decode = steps.build_decode_step(cfg)
-    torch.cuda.synchronize()
+    sync()
     t0 = time.perf_counter()
-    logits, cache = prefill(params, {"tokens": prompt}, cache, plain=plain)
-    torch.cuda.synchronize()
+    logits, cache = prefill(params, prompt, cache, plain=plain)
+    sync()
     prefill_s = time.perf_counter() - t0
     out, fed = [logits[:, -1].float()], []
     t0 = time.perf_counter()
@@ -1088,37 +1148,169 @@ def generate(cfg, params, prompt, n_steps: int, *, plain: bool = False,
         tok = (logits[:, -1].argmax(-1, keepdim=True) if forced is None
                else forced[:, i:i + 1])
         fed.append(tok)
-        logits, cache = decode(params, cache, {"tokens": tok}, prompt.shape[1] + i,
-                               plain=plain)
+        logits, cache = decode(params, cache, {"tokens": tok}, P + i, plain=plain)
         out.append(logits[:, -1].float())
-    torch.cuda.synchronize()
+    sync()
     decode_s = (time.perf_counter() - t0) / max(n_steps, 1)
     return {"logits": torch.stack(out, 1), "fed": torch.cat(fed, 1),
             "prefill_s": prefill_s, "decode_step_s": decode_s, "cache": cache}
+
+
+class RouteLog:
+    """An MoE run's routing, recorded by (MoE layer, position) and replayed
+    in another run over the same positions.
+
+    A kernel's error and its plain version's differ by ulps, so a token
+    whose k-th and (k+1)-th experts are about as close swaps one for the
+    other between two runs, and what later tokens attend to moves with it;
+    over ~110 k decisions a prefill, some will.  So the kernel run records
+    ``moe.route``'s expert ids and probabilities, and the plain run and the
+    teacher-forced forward route by the recorded ids (gates from their own
+    probabilities).  Each replaying call also takes its own top-k: a
+    decision that differs must be a near tie, its margin (the largest gap,
+    in its own probabilities, between an expert it would pick and the
+    recorded one it drops) at most its bound (the two runs' probabilities
+    of those experts moved by that much at most: a swap of two experts
+    needs their order to flip, so their gap is at most the sum of their
+    moves, which are what the kernels' per-call errors became through the
+    layers below).  A call's position span: a prompt (S > 1) starts at 0,
+    a step continues its layer's last span."""
+
+    SHOWN = 64                          # margins printed per run, largest first
+
+    def __init__(self, cfg, batch: int, max_len: int, device):
+        import torch
+        from repro_torch.models import moe
+        self.n = moe.n_groups(cfg)
+        self.idx = torch.zeros((self.n, batch, max_len, cfg.top_k), dtype=torch.long,
+                               device=device)
+        self.probs = torch.zeros((self.n, batch, max_len, cfg.n_experts),
+                                 dtype=torch.float32, device=device)
+        self.runs: dict[str, dict] = {}
+        self._end = [0] * self.n
+
+    @contextlib.contextmanager
+    def active(self, mode: str, label: str | None = None):
+        """Within the block ``moe.route`` records (``mode="record"``) or
+        replays; the run's counts go under ``label`` (default: the mode)."""
+        import itertools
+
+        import torch
+        from repro_torch.models import moe
+        stats = self.runs.setdefault(label or mode, {"mode": mode, "decisions": 0,
+                                                     "dropped": [], "rows": []})
+        calls = itertools.count()
+        saved = moe.route
+
+        def route(p, x, cfg):
+            layer = next(calls) % self.n
+            lo = 0 if x.shape[1] > 1 else self._end[layer]
+            hi = self._end[layer] = lo + x.shape[1]
+            probs = moe.router_probs(p, x)
+            _, own = moe.top_k(probs, cfg.top_k)
+            if mode == "record":
+                self.idx[layer, :, lo:hi] = own
+                self.probs[layer, :, lo:hi] = probs
+                idx = own
+            else:
+                idx = self.idx[layer, :, lo:hi]
+                stats["rows"].append(self._swaps(probs, own, self.probs[layer, :, lo:hi], idx))
+            n_tok = x.shape[0] * x.shape[1]
+            ranks = moe.slot_ranks(idx.reshape(-1), cfg.n_experts)
+            stats["dropped"].append(torch.sum(ranks >= moe.capacity(cfg, n_tok)))
+            stats["decisions"] += n_tok
+            return moe.gates_at(probs, idx), idx
+        moe.route = route
+        try:
+            yield stats
+        finally:
+            moe.route = saved
+
+    @staticmethod
+    def _swaps(p, own, q, ref):
+        """(margin, bound, differs) per token, on the device (no wait)."""
+        import torch
+        p64, q64 = p.double(), q.double()
+
+        def member(ix):
+            return torch.zeros_like(p, dtype=torch.bool).scatter_(-1, ix, True)
+        mine, theirs = member(own), member(ref)
+        a, b = mine & ~theirs, theirs & ~mine
+        moved = (p64 - q64).abs()
+        inf = torch.tensor(float("inf"), dtype=torch.float64, device=p.device)
+        margin = (torch.where(a, p64, -inf).amax(-1) - torch.where(b, p64, inf).amin(-1))
+        bound = (torch.where(a, moved, 0).amax(-1) + torch.where(b, moved, 0).amax(-1))
+        return torch.stack([margin, bound, a.any(-1).double()], -1).reshape(-1, 3)
+
+    def summary(self) -> dict:
+        """Per run: decisions (token x MoE layer), assignments dropped past
+        capacity, decisions that differ from the recorded ones with their
+        margins and bounds (the largest ``SHOWN`` margins)."""
+        import torch
+        out = {}
+        for label, st in self.runs.items():
+            rows = (torch.cat(st["rows"]).cpu() if st["rows"]
+                    else torch.zeros((0, 3), dtype=torch.float64))
+            swaps = rows[rows[:, 2] > 0]
+            order = torch.argsort(swaps[:, 0], descending=True)[:self.SHOWN]
+            out[label] = {
+                "mode": st["mode"], "decisions": st["decisions"],
+                "dropped": int(sum(int(d) for d in st["dropped"])),
+                "differing": len(swaps),
+                "margins": swaps[order, 0].tolist(), "bounds": swaps[order, 1].tolist(),
+                "worst_margin_over_bound": float(
+                    (swaps[:, 0] / swaps[:, 1].clamp_min(1e-300)).max())
+                if len(swaps) else 0.0}
+        return out
+
+
+@contextlib.contextmanager
+def routing(log: RouteLog | None, mode: str, label: str):
+    """``log.active(mode, label)``, or nothing without a log."""
+    if log is None:
+        yield None
+    else:
+        with log.active(mode, label) as stats:
+            yield stats
+
+
+def moe_first_layers(cfg, params: dict, n: int):
+    """An MoE config cut to its first ``n`` layers, and views of ``params``'
+    stacks for them (its first dense layers stay, its groups are cut)."""
+    import dataclasses
+    from repro_torch.models import moe
+    cut = dataclasses.replace(cfg, n_layers=n)
+    g = moe.n_groups(cut)
+
+    def head(tree):
+        return {k: head(v) for k, v in tree.items()} if isinstance(tree, dict) else tree[:g]
+    return cut, {**params, "groups": head(params["groups"])}
 
 
 def run_decode_path(label: str, cfg, params, n_steps: int, t_start: float, *,
                     float32: bool = False, held: bool = True) -> dict:
     """One decode path: the kernel run (its launches counted), the teacher-
     forced forward, and the run through the plain versions on the same
-    tokens.  ``float32`` casts params and cache to float32; ``held`` holds
-    the logits to the forward and the plain run.  Raises on any failed
-    check; returns the emitted line."""
-    import numpy as np
+    tokens; an MoE config's forward and plain run route as the kernel run
+    did (``RouteLog``).  ``float32`` casts params and cache to float32;
+    ``held`` holds the logits to the forward and the plain run.  Raises on
+    any failed check; returns the emitted line."""
     import torch
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.launch import steps
-    rng = np.random.default_rng(SEED)
-    prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (DECODE_BATCH, PROMPT),
-                                           dtype=np.int32)).to(DEVICE)
+    prompt = make_prompt(cfg)
+    P = trunk_len(prompt)
     if float32:
         params = float32_tree(params)
+    log = RouteLog(cfg, DECODE_BATCH, P + n_steps, DEVICE) if cfg.family == "moe" else None
     reset_launches()
-    run = generate(cfg, params, prompt, n_steps, float32=float32)
-    tokens = torch.cat([prompt, run["fed"].to(prompt.dtype)], 1)
+    with routing(log, "record", "kernel"):
+        run = generate(cfg, params, prompt, n_steps, float32=float32)
+    tokens = torch.cat([prompt["tokens"], run["fed"].to(prompt["tokens"].dtype)], 1)
     t0 = time.perf_counter()
-    full = steps.build_forward(cfg)(params, {"tokens": tokens})
-    torch.cuda.synchronize()
+    with routing(log, "replay", "forward"):
+        full = steps.build_forward(cfg)(params, {**prompt, "tokens": tokens})
+    sync()
     forward_s = time.perf_counter() - t0
     launches = dict(LAUNCHES)
     # one more decode step of the last token and more prefills, traced
@@ -1127,11 +1319,11 @@ def run_decode_path(label: str, cfg, params, n_steps: int, t_start: float, *,
     cache, decode = run.pop("cache"), steps.build_decode_step(cfg)
     last = {"tokens": run["fed"][:, -1:]}
     step_profile = profile_forward(
-        lambda: decode(params, cache, last, PROMPT + n_steps - 1),
+        lambda: decode(params, cache, last, P + n_steps - 1),
         kernels={k: DEVICE_KERNELS[k] for k in ("decode_attention", "ssd_scan",
                                                 "wkv6_scan")})
     prefill_profile = profile_forward(
-        lambda: steps.build_prefill_step(cfg)(params, {"tokens": prompt}, cache),
+        lambda: steps.build_prefill_step(cfg)(params, prompt, cache),
         iters=2, kernels={k: DEVICE_KERNELS[k] for k in ("flash_attention", "ssd_scan",
                                                          "wkv6_scan")})
     del cache
@@ -1139,14 +1331,14 @@ def run_decode_path(label: str, cfg, params, n_steps: int, t_start: float, *,
     # plain version on the same inputs (outside the count)
     with kernels_held_to_plain() as per_call:
         generate(cfg, params, prompt, 1, forced=run["fed"], float32=float32)
-    want_calls = {"flash_attention": attention_layers(cfg),
-                  "decode_attention": attention_layers(cfg),
+    want_calls = {"flash_attention": flash_per_pass(cfg),
+                  "decode_attention": decode_per_step(cfg),
                   "ssd_scan": 2 * mamba_layers(cfg), "wkv6_scan": 2 * rwkv_layers(cfg)}
     calls = {k: n for k, n in want_calls.items() if n}
     if {k: r["calls"] for k, r in per_call.items()} != calls:
         raise AssertionError(f"{label}: held kernel calls {per_call}, want {calls}")
-    want = {"flash_attention": attention_layers(cfg) * 2,          # prefill + forward
-            "decode_attention": attention_layers(cfg) * n_steps,
+    want = {"flash_attention": flash_per_pass(cfg) * 2,            # prefill + forward
+            "decode_attention": decode_per_step(cfg) * n_steps,
             "ssd_scan": mamba_layers(cfg) * (1 + n_steps + 1),    # prefill, steps, forward
             "wkv6_scan": rwkv_layers(cfg) * (1 + n_steps + 1),
             "gather_pages": 0, "scatter_pages": 0}
@@ -1155,14 +1347,15 @@ def run_decode_path(label: str, cfg, params, n_steps: int, t_start: float, *,
     logits = run["logits"]                                     # (B, 1 + steps, vocab)
     shape = (DECODE_BATCH, 1 + n_steps, cfg.vocab)
     check_logits(label, logits, shape)
-    teacher = full[:, PROMPT - 1:PROMPT + n_steps].float()
+    teacher = full[:, P - 1:P + n_steps].float()
     teacher_err = float((logits - teacher).abs().max())
     atol = TEACHER_ULPS * bf16_ulp(teacher)
     if cfg.kv_cache_dtype == "int8":
         atol += INT8_REL * float(teacher.abs().max())
     del full, teacher
-    plain = generate(cfg, params, prompt, n_steps, plain=True, forced=run["fed"],
-                     float32=float32)
+    with routing(log, "replay", "plain"):
+        plain = generate(cfg, params, prompt, n_steps, plain=True, forced=run["fed"],
+                         float32=float32)
     del plain["cache"]
     plain_err = float((logits - plain["logits"]).abs().max())
     plain_atol = PLAIN_ULPS * bf16_ulp(plain["logits"])
@@ -1170,10 +1363,18 @@ def run_decode_path(label: str, cfg, params, n_steps: int, t_start: float, *,
         atol = plain_atol = F32_ATOL[cfg.family]
     if not held:
         atol = plain_atol = None
+    routes = None if log is None else log.summary()
+    # capacity differs between the prefill, the steps and the forward (4096,
+    # 4 and 4224 tokens at full width), so the forward can drop what the
+    # run kept: held to it only where neither dropped an assignment
+    if routes and (routes["kernel"]["dropped"] or routes["forward"]["dropped"]):
+        atol = None
     res = {"phase": "decode_path", "path": label, "t": time.perf_counter() - t_start,
-           "function": cfg.name, "kv_cache_dtype": cfg.kv_cache_dtype,
-           "dtype": "float32" if float32 else cfg.dtype,
-           "batch": DECODE_BATCH, "prompt": PROMPT, "decode_steps": n_steps,
+           "function": cfg.name, "n_layers": cfg.n_layers,
+           "kv_cache_dtype": cfg.kv_cache_dtype,
+           "dtype": "float32" if float32 else cfg.dtype, "batch": DECODE_BATCH,
+           "prompt": {k: list(v.shape) for k, v in prompt.items()},
+           "decode_steps": n_steps,
            "prefill_s": run["prefill_s"], "decode_step_s": run["decode_step_s"],
            "forward_s": forward_s, "plain_prefill_s": plain["prefill_s"],
            "plain_decode_step_s": plain["decode_step_s"],
@@ -1181,52 +1382,233 @@ def run_decode_path(label: str, cfg, params, n_steps: int, t_start: float, *,
            "kernel_vs_plain_max_abs": plain_err, "plain_atol": plain_atol,
            "max_abs_logit": float(logits.abs().max()),
            "logits_finite": True, "launches": launches,
-           "kernel_calls_vs_plain": per_call,
+           "kernel_calls_vs_plain": per_call, "routing": routes,
            "decode_step_profile": step_profile, "prefill_profile": prefill_profile}
+    if label in REDUCED:
+        res["reduced"] = REDUCED[label]
     emit(res)
-    if held and (teacher_err > atol or plain_err > plain_atol):
+    if (atol is not None and teacher_err > atol) or (plain_atol is not None
+                                                      and plain_err > plain_atol):
         raise AssertionError(f"{label}: teacher-forced err {teacher_err} (atol {atol}), "
                              f"kernel vs plain {plain_err} (atol {plain_atol})")
     off = {k: r for k, r in per_call.items() if r["worst_err_over_atol"] > 1}
     if off:
         raise AssertionError(f"{label}: kernel calls differ from their plain "
                              f"versions on the model's inputs: {off}")
+    bad = {run: r for run, r in (routes or {}).items() if r["worst_margin_over_bound"] > 1}
+    if bad:
+        raise AssertionError(f"{label}: routing decisions differ past their bound: {bad}")
     return res
 
 
+# The depth cuts, each listed on its path's line.  The VLM differs from
+# the dense family only in its trunk (patch embeddings before the tokens),
+# so 8 of pixtral-12b's 40 layers run its path at full width; the float32
+# twin of deepseek-moe-16b takes its first 8 layers (18.5 GB beside the
+# 32.7 GB of bfloat16 params on the card).
+VLM_LAYERS, MOE_F32_LAYERS = 8, 8
+REDUCED = {
+    "pixtral-12b": {"n_layers": [40, VLM_LAYERS],
+                    "why": "the VLM differs from the dense family only in its "
+                           "trunk; depth costs the smoke's time, not coverage"},
+    "deepseek-moe-16b/f32": {"n_layers": [28, MOE_F32_LAYERS],
+                             "why": "its float32 params (18.5 GB) beside the "
+                                    "bfloat16 ones (32.7 GB) on the card"},
+}
+
+
 def phase_decode_paths(t_start: float) -> dict:
-    """olmo-1b with a bfloat16 and an int8 KV cache, then zamba2-1.2b and
-    rwkv6-7b each in bfloat16 and as a float32 twin, at full width and
-    depth from numpy seed 0.  Returns launches summed over the paths."""
+    """olmo-1b with a bfloat16 and an int8 KV cache; zamba2-1.2b, rwkv6-7b
+    and deepseek-moe-16b each in bfloat16 and as a float32 twin (the MoE
+    one of its first ``MOE_F32_LAYERS`` layers); pixtral-12b (its first
+    ``VLM_LAYERS`` layers) and seamless-m4t-medium in bfloat16; full width,
+    from numpy seed 0.  Returns launches summed over the paths."""
     import dataclasses
 
     import torch
     from repro_torch.configs import ARCHS
     from repro_torch.launch import steps
     total: dict[str, int] = {}
-    # (label, KV cache dtype, steps, float32 twin, logits held)
-    for function, paths in (
-            ("olmo-1b", (("olmo-1b", "bfloat16", DECODE_STEPS, False, True),
-                         ("olmo-1b/int8", "int8", INT8_STEPS, False, True))),
-            ("zamba2-1.2b", (("zamba2-1.2b", "bfloat16", DECODE_STEPS, False, False),
-                             ("zamba2-1.2b/f32", "bfloat16", F32_STEPS, True, True))),
-            ("rwkv6-7b", (("rwkv6-7b", "bfloat16", DECODE_STEPS, False, False),
-                          ("rwkv6-7b/f32", "bfloat16", F32_STEPS, True, True)))):
+    # (function, depth cut, ((label, KV cache dtype, steps, float32 twin,
+    #  logits held, first layers only), ...))
+    for function, depth, paths in (
+            ("olmo-1b", None,
+             (("olmo-1b", "bfloat16", DECODE_STEPS, False, True, None),
+              ("olmo-1b/int8", "int8", INT8_STEPS, False, True, None))),
+            ("zamba2-1.2b", None,
+             (("zamba2-1.2b", "bfloat16", DECODE_STEPS, False, False, None),
+              ("zamba2-1.2b/f32", "bfloat16", F32_STEPS, True, True, None))),
+            ("rwkv6-7b", None,
+             (("rwkv6-7b", "bfloat16", DECODE_STEPS, False, False, None),
+              ("rwkv6-7b/f32", "bfloat16", F32_STEPS, True, True, None))),
+            ("deepseek-moe-16b", None,
+             (("deepseek-moe-16b", "bfloat16", DECODE_STEPS, False, False, None),
+              ("deepseek-moe-16b/f32", "bfloat16", F32_STEPS, True, True,
+               MOE_F32_LAYERS))),
+            ("pixtral-12b", VLM_LAYERS,
+             (("pixtral-12b", "bfloat16", DECODE_STEPS, False, True, None),)),
+            ("seamless-m4t-medium", None,
+             (("seamless-m4t-medium", "bfloat16", DECODE_STEPS, False, True, None),))):
+        base = ARCHS[function]
+        if depth is not None:
+            base = dataclasses.replace(base, n_layers=depth)
         t0 = time.perf_counter()
         with host_peak({"phase": "decode_path", "function": function,
-                        "step": "init_params"}) as line:
-            params = steps.init_params(ARCHS[function], SEED, DEVICE)
-            torch.cuda.synchronize()
+                        "step": "init_params", "n_layers": base.n_layers}) as line:
+            params = steps.init_params(base, SEED, DEVICE)
+            sync()
         emit({**line, "seconds": time.perf_counter() - t0,
               "params": sum(t.numel() for t in _leaves(params))})
-        for label, kvd, n_steps, float32, held in paths:
-            cfg = dataclasses.replace(ARCHS[function], kv_cache_dtype=kvd)
-            res = run_decode_path(label, cfg, params, n_steps, t_start,
+        for label, kvd, n_steps, float32, held, layers in paths:
+            cfg, p = dataclasses.replace(base, kv_cache_dtype=kvd), params
+            if layers is not None:
+                cfg, p = moe_first_layers(cfg, params, layers)
+            res = run_decode_path(label, cfg, p, n_steps, t_start,
                                   float32=float32, held=held)
             for k, n in res["launches"].items():
                 total[k] = total.get(k, 0) + n
+            del p
+            torch.cuda.empty_cache()
         del params
         torch.cuda.empty_cache()
+    return total
+
+
+# -- phase 6: MoE invocation ---------------------------------------------------
+
+MOE_FUNCTION, MOE_LAYERS = "deepseek-moe-16b", 3
+MOE_REQUEST, MOE_SEEDS = (1, 16), (1, 999)      # tests/test_system.py:82
+
+
+def phase_moe_invocation(t_start: float) -> dict:
+    """deepseek-moe-16b at full width and ``MOE_LAYERS`` layers (its leading
+    dense layer and two MoE groups): build its snapshot, then run one
+    invocation on the card for each of two requests, each on a fresh
+    ``InstanceArena``: the executor faults the dense params, routes each
+    group on the true activations and faults only its routed experts'
+    pages.  Gates: the expert pages faulted are exactly the routed experts'
+    pages; the two requests' expert pages differ or are fewer than all;
+    the cold logits equal a warm forward's over ``init_params`` bitwise (an
+    untied head reads no unfaulted row); B3 launches ``MOE_LAYERS`` times
+    an invocation.  Returns the phase's launches."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.core.arena import PAGE, GuestMemoryFile, InstanceArena
+    from repro_torch.core.executor import run_invocation
+    from repro_torch.core.snapshot import build_instance_snapshot
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import steps
+    from repro_torch.models import moe
+    cfg = dataclasses.replace(ARCHS[MOE_FUNCTION], n_layers=MOE_LAYERS)
+    reduced = {"n_layers": [ARCHS[MOE_FUNCTION].n_layers, MOE_LAYERS],
+               "why": "the arena at full depth (~230 GB) outgrows the card "
+                      "machine's 75 GB of disk"}
+    total: dict[str, int] = {}
+
+    def line(**kw):
+        emit({"phase": "moe_invocation", "t": time.perf_counter() - t_start, **kw})
+
+    def count():
+        for k, n in LAUNCHES.items():
+            total[k] = total.get(k, 0) + n
+        reset_launches()
+    store = tempfile.mkdtemp(prefix="moe_store_", dir=os.path.join(ROOT, "build"))
+    base = os.path.join(store, MOE_FUNCTION)
+    try:
+        t0 = time.perf_counter()
+        with host_peak({}) as peak:
+            gm = build_instance_snapshot(cfg, base, seed=SEED)
+        line(step="snapshot", function=MOE_FUNCTION, n_layers=cfg.n_layers,
+             d_model=cfg.d_model, reduced=reduced, seconds=time.perf_counter() - t0,
+             arena_bytes=gm.layout.total_bytes, host_peak_gb=peak["host_peak_gb"])
+        banks = [gm.layout.entries[f"params/groups/moe_layer/moe/{n}"]
+                 for n in ("wi_gate", "wi_up", "wo")]
+
+        def expert_pages(g: int, e: int) -> set:
+            out = set()
+            for b in banks:
+                per = b.nbytes // (b.shape[0] * b.shape[1])
+                lo = b.offset + (g * b.shape[1] + e) * per
+                out.update(range(lo // PAGE, (lo + per - 1) // PAGE + 1))
+            return out
+        n_groups = moe.n_groups(cfg)
+        all_expert = set().union(*(expert_pages(g, e) for g in range(n_groups)
+                                   for e in range(cfg.n_experts)))
+        seen, runs = [], []
+        routed_experts = moe.routed_experts
+
+        def recording(p, x, c):
+            ids = routed_experts(p, x, c)
+            seen.append(sorted(set(ids.reshape(-1).tolist())))
+            return ids
+        for seed in MOE_SEEDS:
+            batch = steps.make_batch(cfg, MOE_REQUEST[1], MOE_REQUEST[0], "train", seed)
+            arena = InstanceArena(GuestMemoryFile.open(base))
+            seen.clear()
+            count()
+            moe.routed_experts = recording
+            try:
+                logits, seconds = run_invocation(cfg, arena, batch, device=DEVICE)
+                sync()
+            finally:
+                moe.routed_experts = routed_experts
+                arena.close()
+            launches = dict(LAUNCHES)
+            count()
+            stats = arena.stats
+            trace = set(stats.trace)
+            routed = list(seen)
+            want = set().union(*(expert_pages(g, e) for g, ids in enumerate(routed)
+                                 for e in ids))
+            faulted = trace & all_expert
+            line(step="invocation", seed=seed, request=list(MOE_REQUEST),
+                 seconds=seconds, n_faults=stats.n_faults, fault_s=stats.fault_seconds,
+                 ws_pages=len(trace), expert_pages=len(faulted),
+                 all_expert_pages=len(all_expert),
+                 routed_per_group=[len(ids) for ids in routed],
+                 expert_pages_per_group=[len(faulted & set().union(
+                     *(expert_pages(g, e) for e in range(cfg.n_experts))))
+                     for g in range(n_groups)],
+                 launches=launches)
+            check_logits(f"moe_invocation {seed}", logits,
+                         (*MOE_REQUEST, cfg.vocab))
+            if len(routed) != n_groups or faulted != want:
+                raise AssertionError(f"moe_invocation {seed}: {len(faulted)} expert pages "
+                                     f"faulted, the routed experts have {len(want)}")
+            if launches["flash_attention"] != cfg.n_layers or any(
+                    n for k, n in launches.items() if k != "flash_attention"):
+                raise AssertionError(f"moe_invocation {seed}: launches {launches}, want "
+                                     f"{cfg.n_layers} flash_attention")
+            runs.append({"seed": seed, "batch": batch, "logits": logits,
+                         "routed": routed, "pages": faulted})
+        a, b = runs
+        line(step="overlap", routed_common_per_group=[
+                 len(set(x) & set(y)) for x, y in zip(a["routed"], b["routed"])],
+             expert_pages_common=len(a["pages"] & b["pages"]),
+             expert_pages_union=len(a["pages"] | b["pages"]))
+        if a["pages"] == b["pages"] and len(a["pages"]) == len(all_expert):
+            raise AssertionError("moe_invocation: both requests faulted every expert page")
+        t0 = time.perf_counter()
+        params = steps.init_params(cfg, SEED, DEVICE)
+        forward = steps.build_forward(cfg)
+        equal = []
+        for r in runs:
+            warm = forward(params, r["batch"])
+            equal.append(bool(torch.equal(warm, r["logits"])))
+            line(step="warm_forward", seed=r["seed"], cold_eq_warm=equal[-1],
+                 max_abs=float((warm.float() - r["logits"].float()).abs().max()))
+        count()
+        line(step="done", warm_seconds=time.perf_counter() - t0, launches=total)
+        if not all(equal):
+            raise AssertionError("moe_invocation: cold logits differ from a warm forward's")
+        del params
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+    torch.cuda.empty_cache()
     return total
 
 
@@ -1370,10 +1752,14 @@ def main() -> int:
     finally:
         shutil.rmtree(store, ignore_errors=True)
     torch.cuda.empty_cache()
+    reset_launches()
+    moe_launches = phase_moe_invocation(t_start)
+    emit({"phase": "launch_counts", "path": "moe_invocation",
+          "kernel_launches": moe_launches})
     decode_launches = phase_decode_paths(t_start)
     emit({"phase": "launch_counts", "path": "decode", "kernel_launches": decode_launches})
-    launches = {k: n + fleet_launches.get(k, 0) + decode_launches.get(k, 0)
-                for k, n in launches.items()}
+    launches = {k: n + fleet_launches.get(k, 0) + moe_launches.get(k, 0)
+                + decode_launches.get(k, 0) for k, n in launches.items()}
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "flash_library_kernels": rows["flash_attention"]["library_kernels"]})
     print(env["nvidia_smi"], flush=True)

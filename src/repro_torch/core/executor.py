@@ -8,16 +8,25 @@ trace and working set are the same page for page:
   * infra pages first, in ascending page order (every invocation),
   * modality frontend banks, only when the invocation carries that modality,
   * params in ``tree_paths`` order, the embedding table only at the rows of
-    the request's tokens.
+    the request's tokens,
+  * for MoE configs the expert banks are skipped there; each group then
+    runs its dense layers, its attention and router on the true
+    activations, and faults only the pages of the experts the router
+    picked (the input-dependent "unique pages" of the paper's Fig. 5)
+    before its experts run.
 
 The embedding rows no request touched stay zero in the instance's arena.
 With tied embeddings (olmo) the LM head reads the whole table, so a cold
 invocation's logits differ from a warm instance's, exactly as in the JAX
 package (``repro.core.executor``), whose fault trace the port reproduces.
+Unrouted experts' pages stay zero.  The experts run are the router's
+top-k over its probabilities, the pages faulted its top-k over its
+logits, as in the JAX package; the two agree unless a float32 softmax
+rounds two logits to one probability.
 
-Compute then runs on the instance's device with the params copied out of
-the arena.  The MoE branch (route, then fault only the routed experts) is
-not ported: ``get_family`` raises for MoE configs (ROADMAP A7).
+Compute runs on the instance's device with the params copied out of the
+arena, through the family's own layer functions, so a cold invocation
+computes what a warm forward does.
 """
 from __future__ import annotations
 
@@ -29,8 +38,10 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..models import get_family
+from ..models import moe as moe_mod
+from ..models.transformer import _logits, embed_tokens, layer_slice
 from ..nn import spec as nnspec
-from .arena import InstanceArena
+from .arena import PAGE, InstanceArena
 
 
 def sync(device: torch.device) -> None:
@@ -70,9 +81,12 @@ class LazyParams:
         self.specs = get_family(cfg).param_specs(cfg)
         self.paths = [p for p, _ in nnspec.tree_paths(self.specs)]
 
-    def fault_all(self, embed_rows: np.ndarray | None = None) -> None:
+    def fault_all(self, skip_prefixes: tuple[str, ...] = (),
+                  embed_rows: np.ndarray | None = None) -> None:
         for p in self.paths:
             full = f"params/{p}"
+            if any(p.startswith(s) for s in skip_prefixes):
+                continue
             if embed_rows is not None and p == "embed/table":
                 self.arena.tensor_rows(full, embed_rows.tolist(),
                                        parallel=self.parallel)
@@ -91,6 +105,23 @@ class LazyParams:
 
 def _touch_infra(arena: InstanceArena) -> None:
     arena.touch_pages(sorted(arena.layout.region_pages("infra")))
+
+
+def _expert_paths(prefix: str) -> tuple[str, ...]:
+    return tuple(f"{prefix}/{n}" for n in ("wi_gate", "wi_up", "wo"))
+
+
+def _expert_pages(e, g: int, experts: np.ndarray) -> list[int]:
+    """Pages of ``experts``' rows of group ``g`` in a stacked (n_groups, E,
+    ...) expert bank, ascending."""
+    per_group = e.nbytes // e.shape[0]
+    per_expert = per_group // e.shape[1]
+    pages: set[int] = set()
+    for ex in experts:
+        lo = e.offset + g * per_group + int(ex) * per_expert
+        hi = lo + per_expert
+        pages.update(range(lo // PAGE, (hi - 1) // PAGE + 1))
+    return sorted(pages)
 
 
 def run_invocation(cfg: ModelConfig, arena: InstanceArena, batch: dict, *,
@@ -115,6 +146,35 @@ def run_invocation(cfg: ModelConfig, arena: InstanceArena, batch: dict, *,
         arena.touch_pages(arena.layout.pages_of("audio/frontend_stub"),
                           parallel=parallel)
 
-    lp.fault_all(embed_rows=embed_rows)
-    logits = get_family(cfg).forward(cfg, lp.tree(), batch)
+    if cfg.family != "moe":
+        lp.fault_all(embed_rows=embed_rows)
+        logits = get_family(cfg).forward(cfg, lp.tree(), batch)
+        return logits, time.perf_counter() - t0
+
+    # ---- MoE: interleave routing with expert faulting ---------------------
+    lp.fault_all(skip_prefixes=("groups/moe_layer/moe/wi",
+                                "groups/moe_layer/moe/wo"),
+                 embed_rows=embed_rows)
+    params = lp.tree()
+    x = embed_tokens(params, batch)
+    for i in range(cfg.first_dense):
+        x = moe_mod._dense_fwd(cfg, layer_slice(params["first_dense"], i), x)
+    for g in range(moe_mod.n_groups(cfg)):
+        gp = layer_slice(params["groups"], g)
+        for j in range(cfg.moe_every - 1):
+            x = moe_mod._dense_fwd(cfg, layer_slice(gp["dense_layers"], j), x)
+        # route on the true activations, then fault only the routed experts
+        mp = gp["moe_layer"]
+        x, h2 = moe_mod._moe_attn(cfg, mp, x)
+        experts = np.unique(moe_mod.routed_experts(mp["moe"], h2, cfg).cpu().numpy())
+        for path in _expert_paths("params/groups/moe_layer/moe"):
+            arena.touch_pages(_expert_pages(arena.layout.entries[path], g, experts),
+                              parallel=parallel)
+        # re-read the (now faulted) expert bank of this group
+        moe_p = dict(mp["moe"])
+        for name in ("wi_gate", "wi_up", "wo"):
+            bank = arena.tensor(f"params/groups/moe_layer/moe/{name}", fault=False)
+            moe_p[name] = bank[g].to(lp.device, copy=True)
+        x = x + moe_mod.apply_moe_mlp(moe_p, h2, cfg)
+    logits = _logits(cfg, params, x)
     return logits, time.perf_counter() - t0

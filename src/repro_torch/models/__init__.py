@@ -11,28 +11,22 @@ A family module exposes:
   position ``pos``, returns (logits, cache).
 
 ``plain`` runs the kernels' plain versions instead of the kernels.  The
-dense, hybrid (Mamba2/Zamba2) and RWKV6 families are ported; the others
-raise and name the ROADMAP item (§A) that ports them.
+registry is the JAX package's: all six families (ten configs) are ported.
 """
 from __future__ import annotations
 
 from ..configs.base import ModelConfig
-from . import rwkv6, transformer, zamba
+from . import encdec, moe, rwkv6, transformer, zamba
 
-FAMILIES = {"dense": transformer, "hybrid": zamba, "rwkv": rwkv6}
-
-_NOT_PORTED = {
-    "moe": "A7 (MoE)",
-    "vlm": "A8 (the VLM path)",
-    "encdec": "A8 (encoder-decoder)",
+FAMILIES = {
+    "dense": transformer,
+    "vlm": transformer,
+    "moe": moe,
+    "hybrid": zamba,
+    "rwkv": rwkv6,
+    "encdec": encdec,
 }
 
 
 def get_family(cfg: ModelConfig):
-    fam = FAMILIES.get(cfg.family)
-    if fam is None:
-        item = _NOT_PORTED.get(cfg.family, "none")
-        raise NotImplementedError(
-            f"model family {cfg.family!r} ({cfg.name}) is not ported to "
-            f"repro_torch yet; ROADMAP item {item} ports it")
-    return fam
+    return FAMILIES[cfg.family]

@@ -1,10 +1,15 @@
-"""Dense GQA decoder-only transformer (qwen/mistral/olmo).
+"""Dense GQA decoder-only transformer (qwen/mistral/olmo) + VLM backbone.
 
 Parameters keep the JAX package's stacked storage: every layer leaf has a
 leading "layers" axis, because the snapshot's arena layout depends on it.
 So does the KV cache: ``cache["kv"]["k"]`` is (layers, B, max_len, KV, D).
 The forward, prefill and decode loop over that axis where the JAX package
 uses ``lax.scan``; prefill and decode write the cache in place.
+
+The VLM (pixtral) is this family with a stub frontend: a prompt's
+``patch_embeds`` (B, n_patches, d_model), cast to the activations' dtype,
+come before its token embeddings, so decode positions continue after
+``n_patches + n_txt``.
 
 ``plain=True`` runs every kernel's plain version in its stead (see
 :mod:`repro_torch.nn.layers`).
@@ -109,6 +114,16 @@ def embed_tokens(params: dict, batch: dict) -> torch.Tensor:
     return nn.apply_embedding(params["embed"], tokens)
 
 
+def _trunk_in(cfg: ModelConfig, params: dict, batch: dict) -> torch.Tensor:
+    """A prompt's embeddings: the VLM's ``patch_embeds`` (moved to the
+    params' device, in the activations' dtype) before its tokens'."""
+    x = embed_tokens(params, batch)
+    if cfg.family == "vlm" and "patch_embeds" in batch:
+        pe = torch.as_tensor(batch["patch_embeds"]).to(x.device, x.dtype)
+        x = torch.cat([pe, x], dim=1)
+    return x
+
+
 def _logits(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
     x = nn.apply_norm(cfg.norm, params.get("ln_f"), x)
     if cfg.tied_embeddings:
@@ -119,7 +134,7 @@ def _logits(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
 def forward(cfg: ModelConfig, params: dict, batch: dict, *,
             plain: bool = False) -> torch.Tensor:
     """Full scoring forward -> logits (B, S, vocab)."""
-    x = _run_layers(cfg, params, embed_tokens(params, batch), None, None, plain)
+    x = _run_layers(cfg, params, _trunk_in(cfg, params, batch), None, None, plain)
     return _logits(cfg, params, x)
 
 
@@ -127,7 +142,7 @@ def prefill(cfg: ModelConfig, params: dict, batch: dict, cache: dict, *,
             plain: bool = False):
     """Populate the KV cache from a full prompt (in place); returns the
     last position's logits (B, 1, vocab) and the cache."""
-    x = _run_layers(cfg, params, embed_tokens(params, batch), cache, 0, plain)
+    x = _run_layers(cfg, params, _trunk_in(cfg, params, batch), cache, 0, plain)
     return _logits(cfg, params, x[:, -1:, :]), cache
 
 

@@ -1,8 +1,9 @@
 """Model building blocks, in PyTorch.
 
-The subset of ``repro.nn.layers`` that the dense and hybrid families use:
-norms, embedding, rotary position embedding, GQA self-attention with an
-optional KV cache (bfloat16 or int8), the SwiGLU MLP and the LM head.
+The subset of ``repro.nn.layers`` that the port's families use: norms,
+embedding, rotary position embedding, GQA self-attention with an optional
+KV cache (bfloat16 or int8), bidirectional and cross attention (the
+encoder-decoder's), the SwiGLU MLP and the LM head.
 Each block is a ``<block>_spec`` giving its parameter spec tree and an
 ``apply_<block>`` on tensors.  The casting points are the JAX package's:
 norms and the attention math run in float32 and cast back, and each block
@@ -12,9 +13,11 @@ Attention over a whole sequence (a forward, or a prefill) runs the
 flash-attention kernel on a CUDA tensor and :func:`chunked_attention` on a
 CPU one.  A decode step (one token over the cache) runs the
 decode-attention kernel on a CUDA tensor and :func:`chunked_attention`
-with a single chunk on a CPU one.  ``plain=True`` runs the kernels' plain
-versions instead, on either device: that is how a run on the card is held
-to the plain versions.
+with a single chunk on a CPU one.  An encoder's bidirectional attention
+runs the flash kernel without its causal mask; a decode step's
+cross-attention over a cache with a valid length runs the decode kernel.
+``plain=True`` runs the kernels' plain versions instead, on either device:
+that is how a run on the card is held to the plain versions.
 """
 from __future__ import annotations
 
@@ -206,13 +209,14 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def _self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    chunk: int, plain: bool) -> torch.Tensor:
-    """Causal attention of a sequence over itself, (B, S, H, D) layout."""
+                    chunk: int, plain: bool, causal: bool = True) -> torch.Tensor:
+    """Attention of a sequence over itself, (B, S, H, D) layout: causal, or
+    bidirectional (an encoder's)."""
     if plain:
-        return mha_ref(q, k, v)
+        return mha_ref(q, k, v, causal=causal)
     if q.is_cuda:
-        return mha(q, k, v.contiguous(), causal=True)
-    return chunked_attention(q, k, v, causal=True, chunk=chunk)
+        return mha(q, k, v.contiguous(), causal=causal)
+    return chunked_attention(q, k, v, causal=causal, chunk=chunk)
 
 
 def _decode_attention(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
@@ -274,6 +278,39 @@ def apply_attention(p: dict, x: torch.Tensor, *, rope_theta: float,
             out = _self_attention(q, k, v, chunk=chunk, plain=plain)
     y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
     return y, cache
+
+
+def apply_bidirectional_attention(p: dict, x: torch.Tensor, *, rope_theta: float,
+                                  chunk: int = 1024, plain: bool = False) -> torch.Tensor:
+    """Self-attention without a causal mask (an encoder layer's), RoPE at
+    positions ``0 .. S-1``."""
+    q, k, v = _qkv(p, x)
+    cos, sin = rope_table(torch.arange(x.shape[1], device=x.device), q.shape[-1],
+                          rope_theta)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    out = _self_attention(q, k, v, chunk=chunk, plain=plain, causal=False)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+
+
+def cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    kv_len: Any = None, *, chunk: int = 1024,
+                    plain: bool = False) -> torch.Tensor:
+    """Attention of q (B, Sq, H, D) over another sequence's k, v (B, Skv,
+    KV, D), without a causal mask: a decoder over its encoder's frames.
+
+    ``kv_len`` is the valid prefix of k/v: None (all of it), an int, or a
+    (B,) int32 tensor (a cross cache's valid length per sequence).  One
+    query token over such a cache runs the decode-attention kernel on a
+    CUDA tensor (the kernel's own semantics: validity per row, no
+    causality); a CPU tensor, and a prompt on either device (no kernel
+    takes Sq != Skv), run :func:`chunked_attention` with one valid length,
+    the first row's, as the JAX package reads it."""
+    if q.shape[1] == 1 and torch.is_tensor(kv_len) and (plain or q.is_cuda):
+        return (gqa_decode_ref if plain else gqa_decode)(q, k, v, kv_len)
+    if torch.is_tensor(kv_len):
+        kv_len = kv_len[0]
+    return chunked_attention(q, k, v, causal=False, kv_len=kv_len, chunk=chunk)
 
 
 def attention_cache_spec(batch: int, max_len: int, n_kv: int, head_dim: int,

@@ -30,6 +30,7 @@ __all__ = [
     "tree_paths",
     "map_leaves",
     "host_initialize",
+    "stream_initialize",
     "itemsize",
     "storage_dtype",
     "torch_dtype",
@@ -151,16 +152,25 @@ def map_leaves(fn: Callable[[str, TensorSpec], Any], tree, prefix: str = ""):
     raise TypeError(f"unsupported spec-tree node: {type(tree)}")
 
 
-def _init_leaf(path: str, s: TensorSpec, seed: int) -> np.ndarray:
-    rng = np.random.default_rng(
+def _leaf_rng(path: str, seed: int) -> np.random.Generator:
+    return np.random.default_rng(
         int.from_bytes(hashlib.md5(f"{seed}:{path}".encode()).digest()[:8], "little")
     )
+
+
+def _draw(rng: np.random.Generator, shape, s: TensorSpec) -> np.ndarray:
+    """The next ``shape`` values of a random leaf's stream, in its host
+    storage dtype."""
+    x = rng.standard_normal(shape, dtype=np.float32)
+    x *= s.scale if s.scale is not None else 0.02     # float32, in place
+    return bf16_bits(x) if s.dtype == "bfloat16" else x.astype(s.dtype)
+
+
+def _init_leaf(path: str, s: TensorSpec, seed: int) -> np.ndarray:
     if s.init in ("zeros", "ones"):
         x = (np.zeros if s.init == "zeros" else np.ones)(s.shape, np.float32)
-    else:
-        x = rng.standard_normal(s.shape, dtype=np.float32)
-        x *= s.scale if s.scale is not None else 0.02     # float32, in place
-    return bf16_bits(x) if s.dtype == "bfloat16" else x.astype(s.dtype)
+        return bf16_bits(x) if s.dtype == "bfloat16" else x.astype(s.dtype)
+    return _draw(_leaf_rng(path, seed), s.shape, s)
 
 
 def host_initialize(tree, seed: int = 0) -> dict[str, np.ndarray]:
@@ -178,3 +188,40 @@ def host_initialize(tree, seed: int = 0) -> dict[str, np.ndarray]:
         futures = {path: pool.submit(_init_leaf, path, s, seed)
                    for path, s in sorted(leaves, key=lambda ps: -ps[1].size)}
         return {path: futures[path].result() for path, _ in leaves}
+
+
+#: values of one leaf drawn at once by :func:`stream_initialize` (256 MB
+#: of float32)
+STREAM_SLICE = 1 << 26
+
+
+def stream_initialize(tree, seed: int = 0, device: Any = "cpu",
+                      slice_elems: int = STREAM_SLICE) -> dict:
+    """:func:`host_initialize`'s values, bit for bit, as a tree of tensors
+    on ``device``, without holding whole leaves on the host.  Each leaf's
+    stream is drawn in slices of at most ``slice_elems`` values (NumPy's
+    ``standard_normal`` continues a stream across calls exactly as one call
+    would draw it), cast and copied into the leaf's tensor one slice at a
+    time; leaves draw in a few threads at once, largest first.  The host
+    then holds at most one slice per thread."""
+    dev = torch.device(device)
+    leaves = list(tree_paths(tree))
+    out = {path: torch.empty(s.shape, dtype=torch_dtype(s.dtype), device=dev)
+           for path, s in leaves}
+
+    def fill(path: str, s: TensorSpec) -> None:
+        flat = out[path].view(-1)
+        if s.init in ("zeros", "ones"):
+            flat.fill_(0 if s.init == "zeros" else 1)
+            return
+        rng = _leaf_rng(path, seed)
+        for lo in range(0, s.size, slice_elems):
+            n = min(slice_elems, s.size - lo)
+            flat[lo:lo + n].copy_(to_torch(_draw(rng, n, s), s.dtype))
+
+    workers = min(os.cpu_count() or 1, 8)
+    with ThreadPoolExecutor(max_workers=workers) as pool:
+        for f in [pool.submit(fill, path, s)
+                  for path, s in sorted(leaves, key=lambda ps: -ps[1].size)]:
+            f.result()
+    return map_leaves(lambda p, _: out[p], tree)

@@ -87,7 +87,11 @@ def test_host_initialize_matches_jax_bits():
         assert mine[path].tobytes() == arr.tobytes(), path
 
 
-@pytest.mark.parametrize("name,item", [("deepseek-moe-16b", "A7"), ("pixtral-12b", "A8")])
-def test_unported_families_raise_with_roadmap_item(name, item):
-    with pytest.raises(NotImplementedError, match=item):
-        get_family(ARCHS[name])
+@pytest.mark.parametrize("name", list(ARCHS))
+def test_every_arch_resolves_to_the_jax_family(name):
+    """All ten configs resolve, each to the port's module of the family the
+    JAX package's registry gives it."""
+    from repro.configs import ARCHS as JAX_ARCHS
+    from repro.models import get_family as jax_get_family
+    mine = get_family(ARCHS[name]).__name__.rsplit(".", 1)[1]
+    assert mine == jax_get_family(JAX_ARCHS[name]).__name__.rsplit(".", 1)[1]
