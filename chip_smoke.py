@@ -8,10 +8,13 @@ Phases, one JSON line each (any failure raises and exits non-zero):
 1. environment: the card, its power limit (``nvidia-smi``) and versions;
 2. build: every kernel of ``src/repro_torch/csrc`` compiled with ``nvcc``
    for ``sm_90a`` (into ``build/repro_torch/``), then the scan kernels'
-   registers, shared memory, spills and tensor-core instructions;
+   and B3's backward kernels' registers, shared memory, spills and
+   tensor-core instructions;
 3. kernel checks: each kernel against its plain PyTorch version on the
    card at the main path's shapes, with its time, the plain version's,
    one library call's (a yardstick the port never calls) and its bound;
+   B3's backward at olmo-1b's training shape (bf16 and f32), pixtral's
+   GQA shape and seamless's bidirectional one;
 4. main path: full-width olmo-1b served through ``Orchestrator`` and
    ``Router`` -- register, a record request, scale to zero, a single cold
    start, a group restore of two, warm requests -- with the logits held
@@ -41,7 +44,16 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    the MoE runs route as their kernel run did, ``RouteLog``), and each
    kernel call of a prefill and a decode step held to its plain version
    on the model's own inputs;
-8. the launch counts of each path (counts set to 0 just before it, read
+8. train path: full-width olmo-1b (bf16, AdamW, 4 x 1024 tokens of the
+   ``launch.train`` corpus): one step's loss and gradients through the
+   kernels held to the plain versions' (and a float32 twin of its first
+   4 layers), exactly one B3 forward and one B3 backward per layer and
+   step, a ``Trainer`` run preempted after step 4 and restarted by REAP
+   restore of its step-3 checkpoint (0 faults, bitwise the saved
+   tensors), its losses held to an uninterrupted run's, and the step's
+   profile, checkpoint bytes, stage, write and restore seconds and the
+   checkpoints' peak disk;
+9. the launch counts of each path (counts set to 0 just before it, read
    just after; the fleet path's from its children), the kernel table,
    and the last line ``{"ok": true, "device": {...}}``.
 
@@ -79,6 +91,21 @@ FLASH_CASES = [                      # (B, S, H, KV, D, dtype, causal)
 ]
 FLASH_ROW = (4, 1024, 16, 16, 128)      # B3's row of the kernel table
 FLASH_ATOL = {"float32": 2e-5, "bfloat16": 2e-2}
+FLASH_BWD_CASES = [                  # (B, S, H, KV, D, dtype, causal)
+    (4, 1024, 16, 16, 128, "bfloat16", True),   # olmo-1b training: the table's row
+    (4, 1024, 16, 16, 128, "float32", True),    # its float32 twin
+    (4, 2048, 32, 8, 128, "bfloat16", True),    # pixtral-12b (GQA, 1024 patches + 1024)
+    (4, 128, 16, 16, 64, "bfloat16", False),    # seamless-m4t-medium's encoder
+]
+# B3's backward against its plain version on the same inputs (the
+# kernel's own output and LSE): both compute in float32, and the kernel
+# rounds each output once to the inputs' dtype.  So a bfloat16 output is
+# within half an ulp of the float32 result, and a different order of
+# summation flips that rounding by one: KERNEL_ULPS ulps at each output's
+# largest magnitude, as the forward's gate.  A float32 output differs only
+# by the order of its sums: the forward check's 2e-5, scaled by the
+# output's largest magnitude where it passes 1 (dK and dV sum over up to
+# G * S query rows).
 DECODE_CASES = [                     # (B, S, H, KV, D, dtype, kv_len or None = random)
     (2, 1024, 8, 2, 64, "float32", None),    # the three shapes of tests/test_kernels.py
     (1, 2048, 4, 4, 128, "float32", None),
@@ -204,18 +231,20 @@ def short_names(mangled: list[str]) -> dict[str, str]:
 
 def scan_kernel_report(out_dir, libs: dict) -> dict:
     """Registers, static shared memory and spills of each scan kernel (B5,
-    B6) from the build's ``-Xptxas -v`` logs, and its HMMA (tensor-core
-    mma) instructions in the built code (``cuobjdump -sass``; None
-    without the tool)."""
+    B6) and of B3's backward kernels from the build's ``-Xptxas -v`` logs,
+    and its HMMA (tensor-core mma) instructions in the built code
+    (``cuobjdump -sass``; None without the tool)."""
     import re
     seen: dict[str, dict] = {}
-    for stem in ("mamba2_scan", "rwkv6_scan"):
+    for stem, only in (("mamba2_scan", ""), ("rwkv6_scan", ""),
+                       ("flash_attention", "flash_bwd")):
         fn = None
         for ln in (out_dir / f"{stem}.log").read_text().splitlines():
             m = re.search(r"Compiling entry function '(\w+)'", ln)
             if m:
-                fn = m.group(1)
-                seen[fn] = {"library": stem, "hmma": None}
+                fn = m.group(1) if only in m.group(1) else None
+                if fn:
+                    seen[fn] = {"library": stem, "hmma": None}
             elif fn and (m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
                                         r"stores, (\d+) bytes spill loads", ln)):
                 seen[fn].update(stack=int(m[1]), spill_stores=int(m[2]),
@@ -347,6 +376,74 @@ def check_flash(B: int, S: int, H: int, KV: int, D: int, dtype: str,
             "library_kernels": library_kernels,
             "library_device_ms": library_device_ms,
             "bound_ms": b, "bound_by": by}
+
+
+def check_flash_bwd(B: int, S: int, H: int, KV: int, D: int, dtype: str,
+                    causal: bool) -> dict:
+    """B3's backward kernel against ``flash_attention_bwd_ref`` on the
+    kernel forward's own output and LSE.  ``plain_ms`` is the backward of
+    autograd through ``mha_ref`` (its graph kept, the backward alone
+    timed); ``library_ms`` the same of ``scaled_dot_product_attention``.
+    The bound: q, k, v, o, dO and the LSE read once, dq, dk, dv written
+    once, against five products (S and dP recomputed, dV, dK, dQ) over the
+    causal half or every pair."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import mha_ref
+    from repro_torch.kernels.flash_attention.ops import _forward, flash_attention_bwd
+    from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref
+    rng = np.random.default_rng(S * 1000 + H + 7)
+    tdt = getattr(torch, dtype)
+
+    def r(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)
+                                ).to("cuda", tdt)
+    q, k, v, do = r(B, S, H, D), r(B, S, KV, D), r(B, S, KV, D), r(B, S, H, D)
+    o, lse = _forward(q, k, v, causal, want_lse=True)
+
+    def kernel():
+        return flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    got = kernel()
+    want = flash_attention_bwd_ref(q, k, v, o, lse, do, causal)
+    torch.cuda.synchronize()
+    errs, atols = {}, {}
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        errs[name] = float((g.float() - w).abs().max())
+        atols[name] = (KERNEL_ULPS * bf16_ulp(w) if dtype == "bfloat16" else
+                       FLASH_ATOL["float32"] * max(1.0, float(w.abs().max())))
+    del got, want
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    plain_out = mha_ref(*leaves, causal=causal)
+
+    def plain():
+        return torch.autograd.grad(plain_out, leaves, do, retain_graph=True)
+    tl = [t.transpose(1, 2) for t in leaves]
+    lib_out = F.scaled_dot_product_attention(*tl, is_causal=causal, enable_gqa=H != KV)
+
+    def library():
+        return torch.autograd.grad(lib_out, leaves, do.transpose(1, 2),
+                                   retain_graph=True)
+    big = S * H >= 2048 * 32
+    ms = cuda_ms_in_turns({"kernel": kernel, "plain": plain, "library": library},
+                          3 if big else 10)
+    library_kernels, library_device_ms = device_profile(library, calls=3)
+    item = q.element_size()
+    n_bytes = (4 * q.numel() + 4 * k.numel()) * item + lse.numel() * 4
+    n_ops = 5 * 2 * B * H * D * (S * (S + 1) // 2 if causal else S * S)
+    b, by = bound_ms(n_bytes, n_ops, dtype)
+    res = {"kernel": "flash_attention_bwd", "shape": [B, S, H, KV, D], "causal": causal,
+           "dtype": dtype, "errors": errs, "atols": atols,
+           "max_abs_err": max(errs.values()),
+           "ok": all(errs[n] <= atols[n] for n in errs),
+           "kernel_ms": ms["kernel"], "plain_ms": ms["plain"],
+           "library_ms": ms["library"],
+           "kernel_device_ms": device_profile(kernel, calls=3)[1],
+           "library_kernels": library_kernels, "library_device_ms": library_device_ms,
+           "bound_ms": b, "bound_by": by}
+    del plain_out, lib_out, leaves
+    torch.cuda.empty_cache()
+    return res
 
 
 def device_profile(fn, calls: int = 10, attempts: int = 3) -> tuple[list[str], float]:
@@ -526,6 +623,14 @@ def phase_kernel_checks(ws_pages: int) -> dict:
                                  f"{res['max_abs_err']} > {res['atol']}")
         if case[:5] == FLASH_ROW and case[6]:
             rows["flash_attention"] = res
+    for case in FLASH_BWD_CASES:
+        res = check_flash_bwd(*case)
+        emit({"phase": "kernel_check", **res})
+        if not res["ok"]:
+            raise AssertionError(f"flash_attention_bwd {case}: errors {res['errors']} "
+                                 f"past {res['atols']}")
+        if case == FLASH_BWD_CASES[0]:
+            rows["flash_attention_bwd"] = res
     for fn, cases, name, row_case in (
             (check_decode, DECODE_CASES, "decode_attention", DECODE_CASES[3]),
             (check_ssd, SSD_CASES, "ssd_scan", SSD_CASES[3]),
@@ -1011,6 +1116,7 @@ F32_ATOL = {"hybrid": 0.01, "rwkv": 1e-3,       # zamba2-1.2b, rwkv6-7b
 # The device kernels each wrapper launches, by fragments of their names
 # in a profiler trace (csrc/*.cu).
 DEVICE_KERNELS = {"flash_attention": ("flash_fwd",),
+                  "flash_attention_bwd": ("flash_bwd",),
                   "decode_attention": ("decode_split", "decode_combine"),
                   "ssd_scan": ("ssd_chunks", "ssd_step"),
                   "wkv6_scan": ("wkv6_chunks", "wkv6_steps")}
@@ -1341,7 +1447,7 @@ def run_decode_path(label: str, cfg, params, n_steps: int, t_start: float, *,
             "decode_attention": decode_per_step(cfg) * n_steps,
             "ssd_scan": mamba_layers(cfg) * (1 + n_steps + 1),    # prefill, steps, forward
             "wkv6_scan": rwkv_layers(cfg) * (1 + n_steps + 1),
-            "gather_pages": 0, "scatter_pages": 0}
+            "gather_pages": 0, "scatter_pages": 0, "flash_attention_bwd": 0}
     if launches != want:
         raise AssertionError(f"{label}: launches {launches}, want {want}")
     logits = run["logits"]                                     # (B, 1 + steps, vocab)
@@ -1472,6 +1578,297 @@ def phase_decode_paths(t_start: float) -> dict:
         del params
         torch.cuda.empty_cache()
     return total
+
+
+# -- phase 8: training ----------------------------------------------------------
+
+TRAIN_FUNCTION = "olmo-1b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_F32_LAYERS = 4, 1024, 6, 4
+TRAIN_CKPT_EVERY, TRAIN_PREEMPT_AT = 3, 4
+TRAIN_OPT = dict(lr=1e-3, warmup_steps=2, total_steps=TRAIN_STEPS)
+# One step through the kernels against one through their plain versions,
+# same params and batch.  bfloat16: the loss within a quarter of one
+# bfloat16 ulp of its magnitude (2**-10 relative): it is a float32 mean
+# over 4,092 targets of terms whose logits differ by rounding flips of at
+# most PLAIN_ULPS ulps at a small share of entries, and flips of both
+# signs average out (H100 reading 1.65e-5 relative).  Each gradient leaf
+# within TRAIN_GRAD_ULPS bfloat16 ulps of its largest magnitude: the
+# forward's logits stay within PLAIN_ULPS (4) after 16 layers, and a
+# gradient crosses the 16 layers forward and then backward, each rounding
+# its own way, so four times that (H100 reading: 3 to 6 ulps).  float32
+# twin of the first TRAIN_F32_LAYERS layers: both sides compute in float32
+# and differ only by the order of their sums; the loss within 1e-6 of its
+# magnitude and each leaf within 3e-5 of its largest magnitude, ten times
+# the H100 reading (3.2e-6) and near the CPU's JAX-against-port bound
+# (2e-5, tests/test_torch_training.py).
+TRAIN_LOSS_RTOL = {"bfloat16": 2.0 ** -10, "float32": 1e-6}
+TRAIN_GRAD_ULPS = 16
+TRAIN_F32_GRAD_REL = 3e-5
+# The restarted run's losses of steps 4-6 against the uninterrupted run's:
+# the same bytes go into the same deterministic arithmetic (no kernel of
+# the step uses atomics), so they should be equal; 1e-6 relative leaves
+# room for a library reduction whose order varies from run to run.
+TRAIN_RESTART_RTOL = 1e-6
+
+
+def tree_bytes_on_disk(path: str) -> int:
+    """Bytes allocated to the files under ``path`` (a sparse file counts
+    what it has written)."""
+    total = 0
+    for d, _, names in os.walk(path):
+        for n in names:
+            try:
+                total += os.stat(os.path.join(d, n)).st_blocks * 512
+            except OSError:
+                pass                      # renamed or removed meanwhile
+    return total
+
+
+@contextlib.contextmanager
+def disk_peak(path: str, out: dict, every_s: float = 0.25):
+    """Samples ``tree_bytes_on_disk(path)`` within the block; sets
+    ``out["disk_peak_gb"]``."""
+    import threading
+    seen, stop = [0], threading.Event()
+
+    def sample():
+        while True:
+            seen.append(tree_bytes_on_disk(path))
+            if stop.wait(every_s):
+                return
+    t = threading.Thread(target=sample, daemon=True)
+    t.start()
+    try:
+        yield out
+    finally:
+        stop.set()
+        t.join()
+        seen.append(tree_bytes_on_disk(path))
+        out["disk_peak_gb"] = max(seen) / 1e9
+
+
+def grads_vs_plain(cfg, params, batch) -> dict:
+    """One loss and gradient through the kernels and one through their
+    plain versions, on the same params and batch: the losses, their
+    difference, and each gradient leaf's largest difference over the
+    plain gradient's largest magnitude."""
+    import torch
+    from repro_torch.launch import steps
+    from repro_torch.training.optimizer import tree_leaves
+    out = {}
+    for plain in (False, True):
+        sync()
+        t0 = time.perf_counter()
+        loss, grads = steps.loss_and_grads(cfg, params, batch, plain=plain)
+        sync()
+        out["plain" if plain else "kernel"] = (float(loss), grads,
+                                                 time.perf_counter() - t0)
+    (loss, grads, ks), (ploss, pgrads, ps) = out["kernel"], out["plain"]
+    rel, ulps = {}, {}
+    for (path, g), (_, w) in zip(tree_leaves(grads), tree_leaves(pgrads)):
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"train step: gradient {path} not finite")
+        w = w.float()
+        m = float(w.abs().max())
+        err = float((g.float() - w).abs().max())
+        rel[path] = err / m if m else err
+        ulps[path] = err / bf16_ulp(w) if m else err
+    worst = max(rel, key=rel.get)
+    return {"loss": loss, "plain_loss": ploss, "loss_rel_err": abs(loss - ploss) / abs(ploss),
+            "grad_rel_err": rel, "grad_err_bf16_ulps": ulps, "worst_leaf": worst,
+            "worst_rel_err": rel[worst], "worst_ulps": max(ulps.values()),
+            "kernel_s": ks, "plain_s": ps}
+
+
+def phase_train_path(t_start: float) -> dict:
+    """Full-width, full-depth olmo-1b training through ``launch.steps`` and
+    ``training.Trainer``: (1) one step's loss and gradients through the
+    kernels against the plain versions, in bfloat16 and in a float32 twin
+    of the first ``TRAIN_F32_LAYERS`` layers; (2) exactly one B3 forward
+    and one backward per layer and step, no other kernel; (3) a run
+    preempted after step ``TRAIN_PREEMPT_AT`` (checkpoint every
+    ``TRAIN_CKPT_EVERY`` steps), restarted by REAP restore of the step-3
+    checkpoint (0 faults, bitwise the saved tensors) to step
+    ``TRAIN_STEPS``, against an uninterrupted run that saves nothing;
+    (4) the times, the checkpoint's bytes and the directory's peak disk.
+    Returns the launches of the counted window (reset just before the
+    first step, read after the last run)."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.data import TokenDataset, synthesize_corpus
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import steps
+    from repro_torch.training import (OptConfig, SimulatedPreemption, Trainer,
+                                      TrainLoopConfig)
+    from repro_torch.training import optimizer as opt_lib
+    from repro_torch.training.optimizer import tree_leaves
+    cfg = ARCHS[TRAIN_FUNCTION]
+    work = tempfile.mkdtemp(prefix="train_", dir=os.path.join(ROOT, "build"))
+    try:
+        corpus = synthesize_corpus(
+            os.path.join(work, f"corpus_{cfg.vocab}.bin"),
+            max(TRAIN_STEPS * TRAIN_BATCH * TRAIN_SEQ * 2, 200_000), cfg.vocab)
+        tokens = TokenDataset(corpus, TRAIN_SEQ).batch(0, TRAIN_BATCH)
+        batch = {"tokens": torch.from_numpy(tokens).to(DEVICE)}
+        t0 = time.perf_counter()
+        params = steps.init_params(cfg, SEED, DEVICE)
+        sync()
+        init_s = time.perf_counter() - t0
+        n_params = sum(t.numel() for _, t in tree_leaves(params))
+        # (1) kernels against plain versions, bfloat16 and a float32 twin
+        bf16 = grads_vs_plain(cfg, params, batch)
+        cfg32 = dataclasses.replace(cfg, n_layers=TRAIN_F32_LAYERS, dtype="float32")
+        p32 = float32_tree({**params, "layers": opt_lib.tree_map(
+            lambda t: t[:TRAIN_F32_LAYERS], params["layers"])})
+        f32 = grads_vs_plain(cfg32, p32, batch)
+        del p32
+        torch.cuda.empty_cache()
+        bounds = {"bf16_loss_rel": TRAIN_LOSS_RTOL["bfloat16"],
+                  "bf16_grad_ulps": TRAIN_GRAD_ULPS,
+                  "f32_loss_rel": TRAIN_LOSS_RTOL["float32"],
+                  "f32_grad_rel": TRAIN_F32_GRAD_REL}
+        line = {"phase": "train_path", "step": "kernel_vs_plain",
+                "t": time.perf_counter() - t_start, "function": cfg.name,
+                "n_layers": cfg.n_layers, "params": n_params, "init_s": init_s,
+                "batch": [TRAIN_BATCH, TRAIN_SEQ], "bounds": bounds,
+                "bfloat16": {k: v for k, v in bf16.items()},
+                "float32_first_layers": {"n_layers": TRAIN_F32_LAYERS,
+                                         **{k: v for k, v in f32.items()}}}
+        emit(line)
+        bad = []
+        if bf16["loss_rel_err"] > bounds["bf16_loss_rel"]:
+            bad.append(f"bf16 loss {bf16['loss_rel_err']}")
+        if bf16["worst_ulps"] > bounds["bf16_grad_ulps"]:
+            bad.append(f"bf16 grads {bf16['grad_err_bf16_ulps']}")
+        if f32["loss_rel_err"] > bounds["f32_loss_rel"]:
+            bad.append(f"f32 loss {f32['loss_rel_err']}")
+        if f32["worst_rel_err"] > bounds["f32_grad_rel"]:
+            bad.append(f"f32 grad {f32['worst_leaf']} {f32['worst_rel_err']}")
+        if bad:
+            raise AssertionError(f"train step through the kernels vs plain: {bad}")
+
+        # (2) one counted step: B3 forward and backward once per layer
+        opt = OptConfig(**TRAIN_OPT)
+        train_step = steps.build_train_step(cfg, opt, remat=False)
+        state = opt_lib.init_state(params, opt)
+        reset_launches()
+        sync()
+        t0 = time.perf_counter()
+        new_p, new_s, metrics = train_step(params, state, batch)
+        sync()
+        step_s = time.perf_counter() - t0
+        one_step = dict(LAUNCHES)
+        want = {k: 0 for k in one_step}
+        want.update(flash_attention=cfg.n_layers, flash_attention_bwd=cfg.n_layers)
+        emit({"phase": "train_path", "step": "one_step", "seconds": step_s,
+              "loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]),
+              "lr": float(metrics["lr"]), "launches": one_step})
+        if one_step != want:
+            raise AssertionError(f"train step launches {one_step}, want {want}")
+        del new_p, new_s, metrics, state
+        torch.cuda.empty_cache()
+
+        # (3) preempt, restart by REAP restore, and an uninterrupted run
+        loop = TrainLoopConfig(total_steps=TRAIN_STEPS, checkpoint_every=TRAIN_CKPT_EVERY,
+                               batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ, remat=False,
+                               restore_mode="reap")
+        ckpt_dir = os.path.join(work, "ckpt")
+        saved: dict = {}
+        disk: dict = {}
+        with disk_peak(work, disk):
+            first = Trainer(cfg, opt, loop, corpus, ckpt_dir,
+                            preempt_at=TRAIN_PREEMPT_AT, device=DEVICE)
+            save = first.ckpt.save
+
+            def keep_and_save(p, o, step):
+                saved[step] = {path: t.detach().clone() for path, t in
+                               tree_leaves({"params": p, "opt": o})}
+                save(p, o, step)
+            first.ckpt.save = keep_and_save
+            t0 = time.perf_counter()
+            try:
+                first.run()
+                raise AssertionError("the first run was not preempted")
+            except SimulatedPreemption:
+                pass
+            first_s = time.perf_counter() - t0
+            stage_s, write_s = first.ckpt.last_stage_s, first.ckpt.last_write_s
+            ckpt_bytes = os.path.getsize(first.ckpt.latest() + ".mem")
+
+            class Restarted(Trainer):
+                def _resume_or_init(self):
+                    t1 = time.perf_counter()
+                    out = super()._resume_or_init()
+                    sync()
+                    self.restored, self.resume_s = out, time.perf_counter() - t1
+                    return out
+            second = Restarted(cfg, opt, loop, corpus, ckpt_dir, device=DEVICE)
+            t0 = time.perf_counter()
+            restarted = second.run()
+            second_s = time.perf_counter() - t0
+        rp, ro, rstep = second.restored
+        got = dict(tree_leaves({"params": rp, "opt": ro}))
+        want_saved = saved.pop(TRAIN_CKPT_EVERY)
+        unequal = [p for p, t in want_saved.items()
+                   if got[p].dtype != t.dtype or not torch.equal(
+                       got[p].view(torch.uint8) if got[p].dim() else got[p],
+                       t.view(torch.uint8) if t.dim() else t)]
+        del second.restored, rp, ro, got, want_saved, saved
+        torch.cuda.empty_cache()
+        nockpt = dataclasses.replace(loop, checkpoint_every=10 ** 9)
+        t0 = time.perf_counter()
+        whole = Trainer(cfg, opt, nockpt, corpus, os.path.join(work, "none"),
+                        device=DEVICE).run()
+        whole_s = time.perf_counter() - t0
+        launches = dict(LAUNCHES)
+        rs = restarted["restore_stats"]
+        after = whole["losses"][TRAIN_CKPT_EVERY:]
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(restarted["losses"], after))
+        res = {"phase": "train_path", "step": "preempt_restart",
+               "t": time.perf_counter() - t_start, "restored_step": rstep,
+               "first_run_s": first_s, "restarted_run_s": second_s,
+               "uninterrupted_s": whole_s,
+               "s_per_step": whole["seconds"] / TRAIN_STEPS,
+               "checkpoint_bytes": ckpt_bytes, "host_stage_s": stage_s,
+               "write_s": write_s, "restore": rs, "resume_s": second.resume_s,
+               "restore_unequal_tensors": unequal[:5], "n_unequal": len(unequal),
+               "restarted_losses": restarted["losses"],
+               "uninterrupted_losses": whole["losses"],
+               "restart_loss_rel_err": loss_err,
+               "restart_losses_bitwise": restarted["losses"] == after,
+               "restart_loss_rtol": TRAIN_RESTART_RTOL,
+               "disk_peak_gb": disk["disk_peak_gb"], "launches": launches}
+        emit(res)
+        if rstep != TRAIN_CKPT_EVERY or rs["n_faults"] != 0 or unequal:
+            raise AssertionError(f"REAP restore: step {rstep}, faults {rs['n_faults']}, "
+                                 f"unequal tensors {unequal[:5]}")
+        if len(restarted["losses"]) != TRAIN_STEPS - TRAIN_CKPT_EVERY or \
+                loss_err > TRAIN_RESTART_RTOL:
+            raise AssertionError(f"restarted losses {restarted['losses']} vs "
+                                 f"uninterrupted {after}")
+        n_steps = 1 + TRAIN_PREEMPT_AT + (TRAIN_STEPS - TRAIN_CKPT_EVERY) + TRAIN_STEPS
+        want = {k: 0 for k in launches}
+        want.update(flash_attention=cfg.n_layers * n_steps,
+                    flash_attention_bwd=cfg.n_layers * n_steps)
+        if launches != want:
+            raise AssertionError(f"train path launches {launches}, want {want}")
+
+        # (4) one step traced (outside the count)
+        state = opt_lib.init_state(params, opt)
+        profile = profile_forward(
+            lambda: train_step(params, state, batch), iters=2,
+            kernels={k: DEVICE_KERNELS[k] for k in ("flash_attention",
+                                                    "flash_attention_bwd")})
+        emit({"phase": "train_path", "step": "train_step_profile", **profile})
+        del params, state
+        torch.cuda.empty_cache()
+        return launches
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
 
 # -- phase 6: MoE invocation ---------------------------------------------------
@@ -1686,6 +2083,10 @@ def kernel_table(rows: dict, launches: dict) -> list[dict]:
         "scatter_pages": (src + "page_gather.cu", tpu + "page_gather/kernel.py:75"),
         "flash_attention": (src + "flash_attention.cu",
                             tpu + "flash_attention/kernel.py:73"),
+        # no TPU counterpart: the JAX model differentiates its plain chunked
+        # attention (no pallas_call has a backward)
+        "flash_attention_bwd": (src + "flash_attention.cu",
+                                "src/repro/nn/layers.py:142"),
         "decode_attention": (src + "decode_attention.cu",
                              tpu + "decode_attention/kernel.py:87"),
         "ssd_scan": (src + "mamba2_scan.cu", tpu + "mamba2_scan/kernel.py:71"),
@@ -1758,8 +2159,11 @@ def main() -> int:
           "kernel_launches": moe_launches})
     decode_launches = phase_decode_paths(t_start)
     emit({"phase": "launch_counts", "path": "decode", "kernel_launches": decode_launches})
+    train_launches = phase_train_path(t_start)
+    emit({"phase": "launch_counts", "path": "train", "kernel_launches": train_launches})
     launches = {k: n + fleet_launches.get(k, 0) + moe_launches.get(k, 0)
-                + decode_launches.get(k, 0) for k, n in launches.items()}
+                + decode_launches.get(k, 0) + train_launches.get(k, 0)
+                for k, n in launches.items()}
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "flash_library_kernels": rows["flash_attention"]["library_kernels"]})
     print(env["nvidia_smi"], flush=True)

@@ -53,6 +53,38 @@
 //   256 threads per (64-row query tile, head, batch), Q and K/V tiles in
 //   shared memory as float32 (rows padded by one float), four lanes per
 //   query row splitting its 64 scores and a quarter of its accumulator.
+//
+// Both forward routes write, when given a non-null pointer, each query
+// row's log-sum-exp over its scaled scores (float32, (B, H, S)): the
+// backward recomputes P from it.  Serving passes null and writes none.
+//
+// Backward (flash_attention_bwd), for training.  The TPU package has no
+// backward kernel: JAX differentiates its plain chunked attention, so the
+// gradient to match is exact softmax attention's (autograd of the plain
+// version).  Bound on the H100 (olmo-1b's training shape, B = 4, S = 1024,
+// 16 heads of 128, bf16): five causal products (S and dP recomputed, dV,
+// dK, dQ), 43 G operations, 0.044 ms at 989 TFLOP/s, against about 134
+// MB of traffic (q, k, v, o, dO read, dq, dk, dv written, the LSE and
+// delta), 0.040 ms.  This first backward is the simple one: every product
+// runs in float32 on the CUDA cores, for both dtypes (bfloat16 inputs are
+// widened as they are staged), and each output is rounded once.  P and dS
+// keep float32's 24 bits: the forward showed that one bfloat16 P moves
+// outputs past a four-ulp gate, and dS = P (dP - delta) is a difference
+// of near-equal terms.  So it runs at the CUDA cores' rate, far from the
+// tensor cores' bound; PERF.md has its time.  Three kernels, no atomics
+// (deterministic):
+//   * flash_bwd_delta: delta = rowsum(dO * O), one warp per query row;
+//   * flash_bwd_dkdv: one CTA of 256 threads per (KV head, batch, 64-key
+//     tile).  K and V stay in shared memory; the CTA walks the G query
+//     heads of its KV head and the query tiles the causal mask keeps,
+//     recomputes S = Q K^T and dP = dO V^T (a 4 x 4 register tile a
+//     thread), P = exp(S - lse) and dS = P (dP - delta), and accumulates
+//     dV += P^T dO and dK += dS^T Q in registers (4 keys x D/16 columns a
+//     thread) until one write: GQA needs no atomics;
+//   * flash_bwd_dq: one CTA per (head, batch, 64-query tile), walking its
+//     key tiles, dQ += dS K in registers.
+//   Tiles are float32 in shared memory, rows padded by one float so the
+//   16 keys a warp reads at one column fall on 16 banks.
 
 #include <cmath>
 #include <cstdint>
@@ -82,8 +114,9 @@ constexpr size_t f32_smem_bytes() {
 template <int D>
 __global__ void __launch_bounds__(kF32Threads)
 flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, float* __restrict__ o, int S,
-              int H, int KV, float scale, int causal) {
+              const float* __restrict__ v, float* __restrict__ o,
+              float* __restrict__ lse, int S, int H, int KV, float scale,
+              int causal) {
   constexpr int LQ = D + 1;        // padded row of sQ / sK
   constexpr int LP = kBK + 1;      // padded row of sP
   constexpr int NC = D / 4;        // accumulator columns per thread
@@ -178,6 +211,9 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     const float den = fmaxf(l, 1e-20f);
 #pragma unroll
     for (int c = 0; c < NC; ++c) ob[sub + 4 * c] = acc[c] / den;
+    // scores were scaled as Q was staged: m is in the scaled units
+    if (lse != nullptr && sub == 0)
+      lse[(static_cast<int64_t>(b) * H + h) * S + qpos] = m + logf(den);
   }
 }
 
@@ -251,8 +287,9 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
 template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-               const bf16* __restrict__ v, bf16* __restrict__ o, int S,
-               int H, int KV, float scale_log2, int causal) {
+               const bf16* __restrict__ v, bf16* __restrict__ o,
+               float* __restrict__ lse, int S, int H, int KV, float scale_log2,
+               int causal) {
   using T = Tile<D>;
   constexpr int Ld = T::kLd;
   constexpr int KS = D / 16;              // k-steps of Q K^T
@@ -419,6 +456,12 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
     inv[i] = __fdividef(1.f, fmaxf(l[i], 1e-20f));   // no slow-path call
+    // lse = ln(sum_j exp(scale * s_j)): the row max m is in raw scores
+    const int row = wq0 + g + 8 * i;
+    if (lse != nullptr && t == 0 && row < S)
+      lse[(static_cast<int64_t>(b) * H + h) * S + row] =
+          (m[i] * scale_log2 + log2f(fmaxf(l[i], 1e-20f))) *
+          0.6931471805599453f;
   }
   const int orow = warp * 16 + g;
 #pragma unroll
@@ -441,12 +484,359 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// -- backward: float32 on the CUDA cores, for both dtypes -----------------------
+
+constexpr int kBwdThreads = 256;          // 16 x 16: (row group, column group)
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ bf16 from_f32<bf16>(float x) {
+  return __float2bfloat16(x);
+}
+
+// delta[b, h, s] = sum_d dO[b, s, h, d] * O[b, s, h, d]: one warp a row.
+template <typename T, int D>
+__global__ void __launch_bounds__(kBwdThreads)
+flash_bwd_delta(const T* __restrict__ o, const T* __restrict__ dout,
+                float* __restrict__ delta, int B, int S, int H) {
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * (kBwdThreads / 32) +
+                      (threadIdx.x >> 5);       // (b, s, h), h fastest
+  const int lane = threadIdx.x & 31;
+  if (row >= static_cast<int64_t>(B) * S * H) return;
+  const T* orow = o + row * D;
+  const T* drow = dout + row * D;
+  float acc = 0.f;
+  for (int d = lane; d < D; d += 32) acc += to_f32(orow[d]) * to_f32(drow[d]);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) {
+    const int h = static_cast<int>(row % H);
+    const int64_t bs = row / H;
+    const int s = static_cast<int>(bs % S), b = static_cast<int>(bs / S);
+    delta[(static_cast<int64_t>(b) * H + h) * S + s] = acc;
+  }
+}
+
+// Rows r0 .. r0 + 63 of a (rows, stride) matrix into a float32 tile with
+// rows of Ld floats; rows at or past S are zero-filled.
+template <typename T, int D>
+__device__ __forceinline__ void stage_rows(float* dst, const T* src,
+                                           int64_t stride, int r0, int S,
+                                           int Ld, int tid) {
+  for (int e = tid; e < kBK * D; e += kBwdThreads) {
+    const int r = e / D, d = e % D, s = r0 + r;
+    dst[r * Ld + d] = s < S ? to_f32(src[s * stride + d]) : 0.f;
+  }
+}
+
+template <int D>
+constexpr size_t bwd_smem_bytes(int n_square) {
+  // four (64, D + 1) tiles, n_square (64, 65) tiles, and lse / delta rows
+  return sizeof(float) *
+         (4 * kBK * (D + 1) + n_square * kBQ * (kBK + 1) + 2 * kBQ);
+}
+
+// S = Q K^T and dP = dO V^T for a 64 x 64 tile: rows rg + 16a and keys
+// cg + 16c (a, c < 4) of this thread, then P and dS written to shared
+// memory (sP may be null: the dQ pass needs dS only).
+template <int D>
+__device__ __forceinline__ void tile_p_ds(
+    const float* sQ, const float* sdO, const float* sK, const float* sV,
+    const float* sL, const float* sD, float* sP, float* sdS, int rg, int cg,
+    int q0, int k0, int S, int causal, float scale_log2) {
+  constexpr int L = D + 1, LP = kBK + 1;
+  float sc[4][4], dp[4][4];
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) sc[a][c] = dp[a][c] = 0.f;
+#pragma unroll 4
+  for (int d = 0; d < D; ++d) {
+    float qa[4], da[4], kc[4], vc[4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      qa[a] = sQ[(rg + 16 * a) * L + d];
+      da[a] = sdO[(rg + 16 * a) * L + d];
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      kc[c] = sK[(cg + 16 * c) * L + d];
+      vc[c] = sV[(cg + 16 * c) * L + d];
+    }
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        sc[a][c] = fmaf(qa[a], kc[c], sc[a][c]);
+        dp[a][c] = fmaf(da[a], vc[c], dp[a][c]);
+      }
+  }
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int i = rg + 16 * a, qpos = q0 + i;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int j = cg + 16 * c, kpos = k0 + j;
+      const bool ok = qpos < S && kpos < S && (!causal || kpos <= qpos);
+      // sL holds lse * log2(e): P = exp(scale * s - lse)
+      const float p = ok ? exp2f(fmaf(sc[a][c], scale_log2, -sL[i])) : 0.f;
+      if (sP != nullptr) sP[i * LP + j] = p;
+      sdS[i * LP + j] = p * (dp[a][c] - sD[i]);
+    }
+  }
+}
+
+// lse * log2(e) and delta of query rows q0 .. q0 + 63 (zero past S)
+__device__ __forceinline__ void stage_stats(float* sL, float* sD,
+                                            const float* lse,
+                                            const float* delta, int q0, int S,
+                                            int tid) {
+  if (tid < kBQ) {
+    const int s = q0 + tid;
+    sL[tid] = s < S ? lse[s] * kLog2e : 0.f;
+    sD[tid] = s < S ? delta[s] : 0.f;
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kBwdThreads)
+flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
+               const T* __restrict__ v, const T* __restrict__ dout,
+               const float* __restrict__ lse, const float* __restrict__ delta,
+               T* __restrict__ dk, T* __restrict__ dv, int S, int H, int KV,
+               float scale, int causal) {
+  constexpr int L = D + 1, LP = kBK + 1, NC = D / 16;
+  static_assert(D % 16 == 0, "head dim a multiple of 16");
+  extern __shared__ float smem[];
+  float* sK = smem;
+  float* sV = sK + kBK * L;
+  float* sQ = sV + kBK * L;
+  float* sdO = sQ + kBQ * L;
+  float* sP = sdO + kBQ * L;
+  float* sdS = sP + kBQ * LP;
+  float* sL = sdS + kBQ * LP;
+  float* sD = sL + kBQ;
+
+  const int kvh = blockIdx.x, b = blockIdx.y;
+  const int kt = blockIdx.z;              // causal: the first tiles work most
+  const int G = H / KV;
+  const int tid = threadIdx.x, rg = tid >> 4, cg = tid & 15;
+  const int k0 = kt * kBK;
+  const int64_t q_row = static_cast<int64_t>(H) * D;
+  const int64_t kv_row = static_cast<int64_t>(KV) * D;
+  const int64_t kv_off = static_cast<int64_t>(b) * S * kv_row + kvh * D;
+  const float scale_log2 = scale * kLog2e;
+
+  stage_rows<T, D>(sK, k + kv_off, kv_row, k0, S, L, tid);
+  stage_rows<T, D>(sV, v + kv_off, kv_row, k0, S, L, tid);
+
+  // this thread's keys rg + 16a and columns cg + 16c
+  float acc_k[4][NC], acc_v[4][NC];
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int c = 0; c < NC; ++c) acc_k[a][c] = acc_v[a][c] = 0.f;
+
+  const int n_q = (S + kBQ - 1) / kBQ;
+  for (int g = 0; g < G; ++g) {
+    const int h = kvh * G + g;
+    const int64_t q_off = static_cast<int64_t>(b) * S * q_row + h * D;
+    const int64_t st_off = (static_cast<int64_t>(b) * H + h) * S;
+    for (int qt = causal ? kt : 0; qt < n_q; ++qt) {   // kBQ == kBK
+      const int q0 = qt * kBQ;
+      __syncthreads();                    // the last tile's reads are done
+      stage_rows<T, D>(sQ, q + q_off, q_row, q0, S, L, tid);
+      stage_rows<T, D>(sdO, dout + q_off, q_row, q0, S, L, tid);
+      stage_stats(sL, sD, lse + st_off, delta + st_off, q0, S, tid);
+      __syncthreads();
+      tile_p_ds<D>(sQ, sdO, sK, sV, sL, sD, sP, sdS, rg, cg, q0, k0, S, causal,
+                   scale_log2);
+      __syncthreads();
+      // dV += P^T dO, dK += dS^T Q over the tile's 64 query rows
+#pragma unroll 2
+      for (int i = 0; i < kBQ; ++i) {
+        float pa[4], sa[4], oc[NC], qc[NC];
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {
+          pa[a] = sP[i * LP + rg + 16 * a];
+          sa[a] = sdS[i * LP + rg + 16 * a];
+        }
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          oc[c] = sdO[i * L + cg + 16 * c];
+          qc[c] = sQ[i * L + cg + 16 * c];
+        }
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+#pragma unroll
+          for (int c = 0; c < NC; ++c) {
+            acc_v[a][c] = fmaf(pa[a], oc[c], acc_v[a][c]);
+            acc_k[a][c] = fmaf(sa[a], qc[c], acc_k[a][c]);
+          }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int s = k0 + rg + 16 * a;
+    if (s >= S) continue;
+    T* dkr = dk + kv_off + s * kv_row;
+    T* dvr = dv + kv_off + s * kv_row;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      dkr[cg + 16 * c] = from_f32<T>(acc_k[a][c] * scale);
+      dvr[cg + 16 * c] = from_f32<T>(acc_v[a][c]);
+    }
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kBwdThreads)
+flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
+             const T* __restrict__ v, const T* __restrict__ dout,
+             const float* __restrict__ lse, const float* __restrict__ delta,
+             T* __restrict__ dq, int S, int H, int KV, float scale,
+             int causal) {
+  constexpr int L = D + 1, LP = kBK + 1, NC = D / 16;
+  static_assert(D % 16 == 0, "head dim a multiple of 16");
+  extern __shared__ float smem[];
+  float* sK = smem;
+  float* sV = sK + kBK * L;
+  float* sQ = sV + kBK * L;
+  float* sdO = sQ + kBQ * L;
+  float* sdS = sdO + kBQ * L;
+  float* sL = sdS + kBQ * LP;
+  float* sD = sL + kBQ;
+
+  const int n_q = (S + kBQ - 1) / kBQ;
+  const int qt = n_q - 1 - static_cast<int>(blockIdx.z);   // longest first
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int kvh = h / (H / KV);
+  const int tid = threadIdx.x, rg = tid >> 4, cg = tid & 15;
+  const int q0 = qt * kBQ;
+  const int64_t q_row = static_cast<int64_t>(H) * D;
+  const int64_t kv_row = static_cast<int64_t>(KV) * D;
+  const int64_t q_off = static_cast<int64_t>(b) * S * q_row + h * D;
+  const int64_t kv_off = static_cast<int64_t>(b) * S * kv_row + kvh * D;
+  const int64_t st_off = (static_cast<int64_t>(b) * H + h) * S;
+  const float scale_log2 = scale * kLog2e;
+
+  stage_rows<T, D>(sQ, q + q_off, q_row, q0, S, L, tid);
+  stage_rows<T, D>(sdO, dout + q_off, q_row, q0, S, L, tid);
+  stage_stats(sL, sD, lse + st_off, delta + st_off, q0, S, tid);
+
+  // this thread's rows rg + 16a and columns cg + 16c
+  float acc[4][NC];
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int c = 0; c < NC; ++c) acc[a][c] = 0.f;
+
+  const int n_kv = (S + kBK - 1) / kBK;
+  const int kv_end = causal ? min(n_kv, qt + 1) : n_kv;   // kBQ == kBK
+  for (int kt = 0; kt < kv_end; ++kt) {
+    const int k0 = kt * kBK;
+    __syncthreads();                      // the last tile's reads are done
+    stage_rows<T, D>(sK, k + kv_off, kv_row, k0, S, L, tid);
+    stage_rows<T, D>(sV, v + kv_off, kv_row, k0, S, L, tid);
+    __syncthreads();
+    tile_p_ds<D>(sQ, sdO, sK, sV, sL, sD, nullptr, sdS, rg, cg, q0, k0, S,
+                 causal, scale_log2);
+    __syncthreads();
+    // dQ += dS K over the tile's 64 keys
+#pragma unroll 2
+    for (int j = 0; j < kBK; ++j) {
+      float sa[4], kc[NC];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) sa[a] = sdS[(rg + 16 * a) * LP + j];
+#pragma unroll
+      for (int c = 0; c < NC; ++c) kc[c] = sK[j * L + cg + 16 * c];
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int c = 0; c < NC; ++c) acc[a][c] = fmaf(sa[a], kc[c], acc[a][c]);
+    }
+  }
+
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int s = q0 + rg + 16 * a;
+    if (s >= S) continue;
+    T* dqr = dq + q_off + s * q_row;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) dqr[cg + 16 * c] = from_f32<T>(acc[a][c] * scale);
+  }
+}
+
+template <typename T, int D>
+int launch_bwd(const void* q, const void* k, const void* v, const void* o,
+               const float* lse, const void* dout, float* delta, void* dq,
+               void* dk, void* dv, int B, int S, int H, int KV, float scale,
+               int causal, cudaStream_t stream) {
+  const auto* tq = static_cast<const T*>(q);
+  const auto* tk = static_cast<const T*>(k);
+  const auto* tv = static_cast<const T*>(v);
+  const auto* tdo = static_cast<const T*>(dout);
+  const int64_t rows = static_cast<int64_t>(B) * S * H;
+  constexpr int kRowsPerCta = kBwdThreads / 32;
+  flash_bwd_delta<T, D><<<static_cast<unsigned>((rows + kRowsPerCta - 1) / kRowsPerCta),
+                          kBwdThreads, 0, stream>>>(static_cast<const T*>(o), tdo,
+                                                    delta, B, S, H);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  const int n_t = (S + kBK - 1) / kBK;
+  constexpr size_t smem_kv = bwd_smem_bytes<D>(2);
+  err = cudaFuncSetAttribute(flash_bwd_dkdv<T, D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem_kv));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_bwd_dkdv<T, D><<<dim3(KV, B, n_t), kBwdThreads, smem_kv, stream>>>(
+      tq, tk, tv, tdo, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), S,
+      H, KV, scale, causal);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  constexpr size_t smem_q = bwd_smem_bytes<D>(1);
+  err = cudaFuncSetAttribute(flash_bwd_dq<T, D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem_q));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_bwd_dq<T, D><<<dim3(H, B, n_t), kBwdThreads, smem_q, stream>>>(
+      tq, tk, tv, tdo, lse, delta, static_cast<T*>(dq), S, H, KV, scale,
+      causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_bwd_dtype(const void* q, const void* k, const void* v,
+                     const void* o, const float* lse, const void* dout,
+                     float* delta, void* dq, void* dk, void* dv, int B, int S,
+                     int H, int KV, int dtype, float scale, int causal,
+                     cudaStream_t stream) {
+  if (dtype == 0)
+    return launch_bwd<float, D>(q, k, v, o, lse, dout, delta, dq, dk, dv, B, S,
+                                H, KV, scale, causal, stream);
+  if (dtype == 1)
+    return launch_bwd<bf16, D>(q, k, v, o, lse, dout, delta, dq, dk, dv, B, S,
+                               H, KV, scale, causal, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 // -- launch ---------------------------------------------------------------------
 
 template <int D>
-int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
-               int S, int H, int KV, float scale, int causal,
-               cudaStream_t stream) {
+int launch_f32(const void* q, const void* k, const void* v, void* o,
+               float* lse, int B, int S, int H, int KV, float scale,
+               int causal, cudaStream_t stream) {
   constexpr size_t smem = f32_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -455,15 +845,15 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
   const dim3 grid((S + kBQ - 1) / kBQ, H, B);
   flash_fwd_f32<D><<<grid, kF32Threads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), S, H, KV, scale,
-      causal);
+      static_cast<const float*>(v), static_cast<float*>(o), lse, S, H, KV,
+      scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
-int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
-                int S, int H, int KV, float scale, int causal,
-                cudaStream_t stream) {
+int launch_bf16(const void* q, const void* k, const void* v, void* o,
+                float* lse, int B, int S, int H, int KV, float scale,
+                int causal, cudaStream_t stream) {
   constexpr size_t smem = Tile<D>::kSmem;
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -472,19 +862,19 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
   const dim3 grid(H, B, (S + kBQ - 1) / kBQ);
   flash_fwd_bf16<D><<<grid, kThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), S, H, KV,
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, S, H, KV,
       scale * 1.4426950408889634f, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int S, int H, int KV, int dtype, float scale, int causal,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int S, int H, int KV, int dtype, float scale, int causal,
            cudaStream_t stream) {
   if (dtype == 0)
-    return launch_f32<D>(q, k, v, o, B, S, H, KV, scale, causal, stream);
+    return launch_f32<D>(q, k, v, o, lse, B, S, H, KV, scale, causal, stream);
   if (dtype == 1)
-    return launch_bf16<D>(q, k, v, o, B, S, H, KV, scale, causal, stream);
+    return launch_bf16<D>(q, k, v, o, lse, B, S, H, KV, scale, causal, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -494,16 +884,39 @@ extern "C" {
 
 // dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores).  All
 // tensors contiguous; bfloat16 ones 16-byte aligned.
+// lse: null, or (B, H, S) float32 for each query row's log-sum-exp.
 int flash_attention(const void* q, const void* k, const void* v, void* o,
-                    int B, int S, int H, int KV, int D, int dtype,
+                    void* lse, int B, int S, int H, int KV, int D, int dtype,
                     float scale, int causal, void* stream) {
   if (B <= 0 || S <= 0) return static_cast<int>(cudaSuccess);
   auto st = static_cast<cudaStream_t>(stream);
+  auto* l = static_cast<float*>(lse);
   switch (D) {
-    case 32: return launch<32>(q, k, v, o, B, S, H, KV, dtype, scale, causal, st);
-    case 64: return launch<64>(q, k, v, o, B, S, H, KV, dtype, scale, causal, st);
-    case 80: return launch<80>(q, k, v, o, B, S, H, KV, dtype, scale, causal, st);
-    case 128: return launch<128>(q, k, v, o, B, S, H, KV, dtype, scale, causal, st);
+    case 32: return launch<32>(q, k, v, o, l, B, S, H, KV, dtype, scale, causal, st);
+    case 64: return launch<64>(q, k, v, o, l, B, S, H, KV, dtype, scale, causal, st);
+    case 80: return launch<80>(q, k, v, o, l, B, S, H, KV, dtype, scale, causal, st);
+    case 128: return launch<128>(q, k, v, o, l, B, S, H, KV, dtype, scale, causal, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The backward: q, k, v, o, dout and the forward's lse in, dq, dk, dv out
+// (q's, k's and v's shapes and dtype); delta is (B, H, S) float32 scratch.
+// All contiguous.
+int flash_attention_bwd(const void* q, const void* k, const void* v,
+                        const void* o, const void* lse, const void* dout,
+                        void* delta, void* dq, void* dk, void* dv, int B,
+                        int S, int H, int KV, int D, int dtype, float scale,
+                        int causal, void* stream) {
+  if (B <= 0 || S <= 0) return static_cast<int>(cudaSuccess);
+  auto st = static_cast<cudaStream_t>(stream);
+  const auto* l = static_cast<const float*>(lse);
+  auto* dl = static_cast<float*>(delta);
+  switch (D) {
+    case 32: return launch_bwd_dtype<32>(q, k, v, o, l, dout, dl, dq, dk, dv, B, S, H, KV, dtype, scale, causal, st);
+    case 64: return launch_bwd_dtype<64>(q, k, v, o, l, dout, dl, dq, dk, dv, B, S, H, KV, dtype, scale, causal, st);
+    case 80: return launch_bwd_dtype<80>(q, k, v, o, l, dout, dl, dq, dk, dv, B, S, H, KV, dtype, scale, causal, st);
+    case 128: return launch_bwd_dtype<128>(q, k, v, o, l, dout, dl, dq, dk, dv, B, S, H, KV, dtype, scale, causal, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -22,6 +22,8 @@ import threading
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -38,8 +40,8 @@ SIGNATURES: dict[str, dict[str, list]] = {
         "scatter_pages": [_P, _P, _P, _I64, _I64, _I64, _P],
     },
     "flash_attention": {
-        "flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                            ctypes.c_float, _I, _P],
+        "flash_attention": [_P] * 5 + [_I] * 6 + [ctypes.c_float, _I, _P],
+        "flash_attention_bwd": [_P] * 10 + [_I] * 6 + [ctypes.c_float, _I, _P],
     },
     "decode_attention": {
         "decode_attention": [_P] * 7 + [_I] * 7 + [ctypes.c_float] + [_I64] * 8
@@ -62,8 +64,8 @@ last_build_seconds: float | None = None
 #: kernel name -> launches so far.  Each wrapper adds one exactly where it
 #: launches its kernel, so a run can show it went through the kernel.
 LAUNCHES: dict[str, int] = {"gather_pages": 0, "scatter_pages": 0,
-                            "flash_attention": 0, "decode_attention": 0,
-                            "ssd_scan": 0, "wkv6_scan": 0}
+                            "flash_attention": 0, "flash_attention_bwd": 0,
+                            "decode_attention": 0, "ssd_scan": 0, "wkv6_scan": 0}
 _COUNT_LOCK = threading.Lock()
 
 
@@ -169,6 +171,18 @@ def aligned16(t) -> bool:
     return (t.data_ptr() % 16 == 0 and t.shape[-1] * isz % 16 == 0
             and all(s * isz % 16 == 0 for s, n in zip(t.stride()[:-1], t.shape[:-1])
                     if n > 1))
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise where a kernel without a backward would be put in an autograd
+    graph: a CUDA input that requires grad while grad is enabled.  The
+    kernel's output would carry no ``grad_fn``, and every gradient upstream
+    of it would go silently missing.  (CPU tensors take the plain version,
+    which autograd differentiates.)"""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise KernelError(
+            f"{name} has no backward kernel (ROADMAP A9.1): call it under "
+            "torch.no_grad() or with inputs that do not require grad")
 
 
 def check(rc: int, what: str) -> None:

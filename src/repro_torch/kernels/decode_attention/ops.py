@@ -4,7 +4,9 @@ Takes the model's layout, as the JAX wrapper ``ops.gqa_decode`` does: one
 query token (B, 1, H, D) over a cache (B, S, KV, D).  The kernel reads the
 cache through its strides, so no transposed copy is made (the JAX wrapper
 moves the cache's axes on every call).  A CPU tensor runs the plain
-version in ``ref``; a CUDA tensor launches the kernel or raises.
+version in ``ref``; a CUDA tensor launches the kernel or raises, and so
+does one that requires grad while grad is enabled (the kernel has no
+backward: decode runs under no grad).
 """
 from __future__ import annotations
 
@@ -12,7 +14,7 @@ import math
 
 import torch
 
-from ..build import check, count_launch, library
+from ..build import check, count_launch, library, refuse_grad
 from .ref import gqa_decode_ref
 
 HEAD_DIMS = (32, 64, 80, 128)
@@ -57,6 +59,7 @@ def gqa_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return gqa_decode_ref(q, k, v, kv_len)
     if len(devs) != 1 or q.device.type != "cuda":
         raise ValueError(f"gqa_decode: tensors must share one CUDA device, got {devs}")
+    refuse_grad("decode_attention", q, k, v)
     code = _DTYPES.get((q.dtype, k.dtype))
     if code is None:
         raise TypeError(f"gqa_decode: kernel takes (q, cache) dtypes "

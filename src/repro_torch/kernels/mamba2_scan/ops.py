@@ -5,13 +5,15 @@ P) is read through its strides (the JAX wrapper transposes it), and B and
 C (Bz, L, N) are indexed by batch (the JAX wrapper copies them once per
 head).  Returns y and the final state in float32 without the D residual,
 as the model's path needs.  A CPU tensor runs the plain version in
-``ref``; a CUDA tensor launches the kernel or raises.
+``ref``; a CUDA tensor launches the kernel or raises, and so does one
+that requires grad while grad is enabled: the kernel's backward is ROADMAP
+A9.1, and until then zamba2 trains on the CPU only.
 """
 from __future__ import annotations
 
 import torch
 
-from ..build import aligned16, check, count_launch, library
+from ..build import aligned16, check, count_launch, library, refuse_grad
 from .ref import ssd_scan_ref
 
 HEAD_DIMS = (32, 64, 128)             # the P the chunk kernel is built for
@@ -46,6 +48,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         return ssd_scan_ref(x, dt, A, B, C, h0, chunk=chunk)
     if len(devs) != 1 or x.device.type != "cuda":
         raise ValueError(f"ssd_scan: tensors must share one CUDA device, got {devs}")
+    refuse_grad("ssd_scan", *tensors)
     if x.dtype not in _X_DTYPES or any(t.dtype != torch.float32 for t in tensors[1:]):
         raise TypeError(f"ssd_scan: kernel takes x float32/bfloat16 and float32 "
                         f"dt/A/B/C/h0; got {[t.dtype for t in tensors]}")

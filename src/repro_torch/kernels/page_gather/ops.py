@@ -5,13 +5,15 @@ per row, 16 at a time when the width and pointers allow.  A CPU tensor runs
 the plain version in ``ref``; a CUDA tensor launches the kernel or raises.
 Indices are range-checked on the host for CPU tensors and inside the kernel
 for CUDA ones (a device-side assert, as ``torch.index_select``), so a
-launch never waits for the device.
+launch never waits for the device.  The kernels have no backward (the
+page install runs under no grad): a CUDA input that requires grad while
+grad is enabled raises.
 """
 from __future__ import annotations
 
 import torch
 
-from ..build import check, count_launch, library
+from ..build import check, count_launch, library, refuse_grad
 from .ref import page_gather_ref, page_scatter_ref
 
 
@@ -43,6 +45,7 @@ def gather_pages(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """
     if _check_rows("gather_pages", table, idx, table.shape[0]):
         return page_gather_ref(table, idx)
+    refuse_grad("gather_pages", table)
     out = torch.empty((idx.shape[0], table.shape[1]), dtype=table.dtype,
                       device=table.device)
     if idx.numel() == 0:
@@ -76,6 +79,7 @@ def scatter_pages(ws: torch.Tensor, idx: torch.Tensor,
         return page_scatter_ref(ws, idx, dest)
     if dest.device != ws.device or not dest.is_contiguous():
         raise ValueError("scatter_pages: dest must be contiguous on ws's device")
+    refuse_grad("scatter_pages", ws, dest)
     if idx.numel() == 0:
         return dest
     with torch.cuda.device(dest.device):

@@ -4,13 +4,15 @@ Takes the model's layout, not the JAX kernel's flattened one: r, k, v and
 logw (B, L, H, D) are read through their strides (the JAX wrapper
 transposes them and tiles u per batch).  Returns y and the final state in
 float32, as the model's path needs.  A CPU tensor runs the plain version
-in ``ref``; a CUDA tensor launches the kernel or raises.
+in ``ref``; a CUDA tensor launches the kernel or raises, and so does one
+that requires grad while grad is enabled: the kernel's backward is ROADMAP
+A9.1, and until then rwkv6 trains on the CPU only.
 """
 from __future__ import annotations
 
 import torch
 
-from ..build import aligned16, check, count_launch, library
+from ..build import aligned16, check, count_launch, library, refuse_grad
 from .ref import wkv6_ref
 
 HEAD_DIMS = (16, 32, 64)               # the D the kernel is built for
@@ -42,6 +44,7 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.Tensor,
         return wkv6_ref(r, k, v, logw, u, s0, chunk=chunk)
     if len(devs) != 1 or r.device.type != "cuda":
         raise ValueError(f"wkv6: tensors must share one CUDA device, got {devs}")
+    refuse_grad("wkv6_scan", *tensors)
     if (r.dtype not in _RKV_DTYPES or k.dtype != r.dtype or v.dtype != r.dtype
             or any(t.dtype != torch.float32 for t in (logw, u, s0))):
         raise TypeError(f"wkv6: kernel takes r/k/v float32 or bfloat16 (one dtype) "

@@ -1,12 +1,14 @@
 """Step functions and inputs for the port's model families.
 
-The JAX package's ``repro.launch.steps`` without the train step (training
-is not ported yet) and without the abstract ``input_specs`` of its dry
-run.  Inputs come from a numpy generator (the JAX package draws them from
-``jax.random``, which the port cannot reproduce): they stay host arrays
-that the models move to their device.  ``init_params`` writes the same
+The JAX package's ``repro.launch.steps`` without the abstract
+``input_specs`` of its dry run.  Inputs come from a numpy generator (the
+JAX package draws them from ``jax.random``, which the port cannot
+reproduce): they stay host arrays that the models move to their device.  ``init_params`` writes the same
 bytes as a snapshot (``nn.spec.host_initialize``) and ``init_cache`` makes
-zeros; both go to the card unless the caller asks for the CPU.
+zeros; both go to the card unless the caller asks for the CPU.  The train
+step (:func:`build_train_step`) runs on its params' device: the family's
+``loss``, its gradient over every param leaf by ``torch.autograd.grad``,
+then ``training.optimizer.apply_updates``.
 """
 from __future__ import annotations
 
@@ -19,6 +21,8 @@ from ..configs.base import ModelConfig
 from ..device import device_of
 from ..models import get_family
 from ..nn import spec as nnspec
+from ..training import optimizer as opt_lib
+from ..training.optimizer import tree_leaves
 
 
 # ---------------------------------------------------------------------------
@@ -65,6 +69,84 @@ def make_batch(cfg: ModelConfig, seq: int, batch: int, kind: str,
 # ---------------------------------------------------------------------------
 # Steps
 # ---------------------------------------------------------------------------
+
+
+def _unflatten(paths: list[str], leaves: list) -> dict:
+    tree: dict = {}
+    for path, leaf in zip(paths, leaves):
+        *parents, name = path.split("/")
+        node = tree
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[name] = leaf
+    return tree
+
+
+def loss_and_grads(cfg: ModelConfig, params: dict, batch: dict, *,
+                   remat: bool = False, remat_policy=None, plain: bool = False):
+    """(loss, grads): the family's loss on ``batch`` and its gradient with
+    respect to every param leaf, a tree of the params' structure with each
+    gradient in its param's dtype (zeros for a leaf the loss does not
+    read), as ``jax.value_and_grad`` gives them.  ``params`` is left as it
+    is: the leaves differentiated are detached views of it."""
+    fam = get_family(cfg)
+    paths, leaves = [], []
+    for path, t in tree_leaves(params):
+        paths.append(path)
+        leaves.append(t.detach().requires_grad_(True))
+    with torch.enable_grad():
+        loss = fam.loss(cfg, _unflatten(paths, leaves), batch, remat=remat,
+                        remat_policy=remat_policy, plain=plain)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = [torch.zeros_like(t) if g is None else g for g, t in zip(grads, leaves)]
+    return loss.detach(), _unflatten(paths, grads)
+
+
+def build_train_step(cfg: ModelConfig, opt: opt_lib.OptConfig, *,
+                     remat: bool = True, remat_policy=None,
+                     grad_dtype: torch.dtype = torch.float32, microbatches: int = 1,
+                     accum_dtype: torch.dtype = torch.float32, plain: bool = False):
+    """``train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics)`` with ``loss``, ``grad_norm`` and ``lr`` in ``metrics``; the
+    params and state returned are new tensors.
+
+    ``microbatches > 1`` takes the batch in that many slices along its
+    first axis and accumulates their gradients in ``accum_dtype``, then
+    divides loss and gradients by the count (gradients to float32), as the
+    JAX package's ``scan`` does.  ``grad_dtype`` other than float32 casts
+    the gradients before the update.  ``plain`` runs the kernels' plain
+    versions.  The JAX package's ``grad_shardings`` is a no-op on one card
+    (ROADMAP A10)."""
+    def grads_of(params, batch):
+        return loss_and_grads(cfg, params, batch, remat=remat,
+                              remat_policy=remat_policy, plain=plain)
+
+    def train_step(params, opt_state, batch):
+        if microbatches == 1:
+            loss, grads = grads_of(params, batch)
+        else:
+            n = next(iter(batch.values())).shape[0]
+            if n % microbatches:
+                raise ValueError(f"batch of {n} does not split into {microbatches} "
+                                 "microbatches")
+            mb = n // microbatches
+            loss, acc = 0.0, None
+            for i in range(microbatches):
+                part = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
+                l, g = grads_of(params, part)
+                g = opt_lib.tree_map(lambda t: t.to(accum_dtype), g)
+                acc = g if acc is None else opt_lib.tree_map(torch.add, acc, g)
+                loss = loss + l
+            loss = loss / microbatches
+            grads = opt_lib.tree_map(lambda t: (t / microbatches).to(torch.float32), acc)
+        if grad_dtype != torch.float32:
+            grads = opt_lib.tree_map(lambda t: t.to(grad_dtype), grads)
+        new_params, new_state, metrics = opt_lib.apply_updates(params, grads,
+                                                               opt_state, opt)
+        metrics["loss"] = loss
+        return new_params, new_state, metrics
+
+    return train_step
 
 
 def build_forward(cfg: ModelConfig):

@@ -8,7 +8,9 @@ A family module exposes:
 - ``prefill(cfg, params, batch, cache, *, plain=False)``: fills the cache
   in place from a prompt, returns (last-position logits, cache);
 - ``decode(cfg, params, cache, batch, pos, *, plain=False)``: one token at
-  position ``pos``, returns (logits, cache).
+  position ``pos``, returns (logits, cache);
+- ``loss(cfg, params, batch, *, remat=False, remat_policy=None,
+  plain=False)``: the mean next-token cross-entropy, float32.
 
 ``plain`` runs the kernels' plain versions instead of the kernels.  The
 registry is the JAX package's: all six families (ten configs) are ported.

@@ -12,7 +12,9 @@ cross-attention runs the decode kernel over that cache with ``kv_len =
 enc_len``.  A prompt's cross-attention (Sq != Skv) runs
 ``nn.chunked_attention`` on either device, as in the JAX package.  Storage
 keeps the stacked ``enc_layers``/``dec_layers`` axes; prefill and decode
-write the caches in place.  ``loss`` comes with training (ROADMAP A9).
+write the caches in place.  ``loss`` is the dense family's chunked
+next-token CE over the decoder's hidden states; ``remat`` is ignored, as
+in the JAX package.
 """
 from __future__ import annotations
 
@@ -21,7 +23,8 @@ import torch
 from ..configs.base import ModelConfig
 from ..nn import layers as nn
 from ..nn.spec import torch_dtype
-from .transformer import embed_tokens, layer_slice, stack_specs
+from .transformer import (batch_tokens, ce_from_hidden, check_remat_policy,
+                          embed_tokens, layer_slice, stack_specs)
 
 
 def enc_layer_spec(cfg: ModelConfig) -> dict:
@@ -166,3 +169,12 @@ def prefill(cfg, params, batch, cache, *, plain: bool = False):
 def decode(cfg, params, cache, batch, pos, *, plain: bool = False):
     x = _dec_run(cfg, params, batch, None, cache, pos, cache["enc_len"], plain)
     return _logits(params, x), cache
+
+
+def loss(cfg, params, batch, *, remat: bool = False, remat_policy=None,
+         plain: bool = False) -> torch.Tensor:
+    del remat                              # as in the JAX package
+    check_remat_policy(remat_policy)
+    enc_out = encode(cfg, params, batch["frames"], plain)
+    x = _dec_run(cfg, params, batch, enc_out, plain=plain)
+    return ce_from_hidden(cfg, params, x, batch_tokens(batch, x.device))

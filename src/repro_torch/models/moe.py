@@ -18,7 +18,10 @@ through ``nn.apply_attention``: the flash kernel on prefill and forward,
 the decode kernel on each step.  Storage keeps the stacked axes (``groups``
 of one MoE layer and ``moe_every - 1`` dense layers, ``first_dense``),
 looped over where the JAX package scans; prefill and decode write the
-caches in place.  ``loss`` comes with training (ROADMAP A9).
+caches in place.  ``loss`` is the dense family's chunked next-token CE
+over the final hidden states; ``remat=True`` recomputes each group (its
+dense layers and its MoE layer) in the backward, as the JAX package
+checkpoints its group scan's body.
 """
 from __future__ import annotations
 
@@ -27,7 +30,9 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from ..nn import layers as nn
-from .transformer import _logits, _trunk_in, embed_tokens, layer_slice, stack_specs
+from .transformer import (_logits, _trunk_in, batch_tokens, ce_from_hidden,
+                          check_remat_policy, embed_tokens, layer_slice, remat_call,
+                          stack_specs)
 
 # ---------------------------------------------------------------------------
 # Specs
@@ -251,7 +256,7 @@ def _group_fwd(cfg, gp, x, gcache=None, pos=None, plain=False):
 
 
 def _run(cfg: ModelConfig, params: dict, x: torch.Tensor, cache: dict | None,
-         pos: int | None, plain: bool) -> torch.Tensor:
+         pos: int | None, plain: bool, remat: bool = False) -> torch.Tensor:
     for i in range(cfg.first_dense):
         lc = None if cache is None else layer_slice(cache["first_dense"], i)
         x = _dense_fwd(cfg, layer_slice(params["first_dense"], i), x, lc, pos, plain)
@@ -261,7 +266,8 @@ def _run(cfg: ModelConfig, params: dict, x: torch.Tensor, cache: dict | None,
             gc = {"moe": layer_slice(cache["group_moe"], g)}
             if "group_dense" in cache:
                 gc["dense"] = layer_slice(cache["group_dense"], g)
-        x = _group_fwd(cfg, layer_slice(params["groups"], g), x, gc, pos, plain)
+        x = remat_call(remat and cache is None, _group_fwd, cfg,
+                       layer_slice(params["groups"], g), x, gc, pos, plain)
     return x
 
 
@@ -278,3 +284,10 @@ def prefill(cfg, params, batch, cache, *, plain: bool = False):
 def decode(cfg, params, cache, batch, pos, *, plain: bool = False):
     x = _run(cfg, params, embed_tokens(params, batch), cache, pos, plain)
     return _logits(cfg, params, x), cache
+
+
+def loss(cfg, params, batch, *, remat: bool = False, remat_policy=None,
+         plain: bool = False) -> torch.Tensor:
+    check_remat_policy(remat_policy)
+    x = _run(cfg, params, _trunk_in(cfg, params, batch), None, None, plain, remat)
+    return ce_from_hidden(cfg, params, x, batch_tokens(batch, x.device))

@@ -9,7 +9,10 @@ where the JAX package uses ``lax.scan``; prefill and decode write each
 layer's state (``wkv``, ``tm_shift``, ``cm_shift``) in place into its
 slice of the cache, where the JAX package returns a new one.  The shift
 states are bfloat16 in the cache spec, so a float32 run rounds them as the
-JAX package does.  ``loss`` comes with training (ROADMAP A9).
+JAX package does.  ``loss`` is the dense family's chunked next-token CE;
+``remat=True`` recomputes each layer in the backward.  On the card the
+loss raises until the WKV6 scan has a backward kernel (ROADMAP A9.1): its
+wrapper refuses an autograd graph.
 """
 from __future__ import annotations
 
@@ -20,7 +23,8 @@ from ..configs.base import ModelConfig
 from ..kernels.rwkv6_scan import wkv6, wkv6_ref
 from ..nn import layers as nn
 from ..nn.spec import tensor
-from .transformer import _logits, embed_tokens, layer_slice, stack_specs
+from .transformer import (_logits, batch_tokens, ce_from_hidden, check_remat_policy,
+                          embed_tokens, layer_slice, remat_call, stack_specs)
 
 
 def dims(cfg: ModelConfig):
@@ -159,11 +163,12 @@ def _layer_fwd(cfg, lp, x, ls, plain):
                                  None if ls is None else ls["cm_shift"])
 
 
-def _run(cfg, params, x, cache, plain):
+def _run(cfg, params, x, cache, plain, remat=False):
     x = nn.apply_rmsnorm(params["ln_in"], x)
     for i in range(cfg.n_layers):
         ls = None if cache is None else layer_slice(cache["layers"], i)
-        x = _layer_fwd(cfg, layer_slice(params["layers"], i), x, ls, plain)
+        x = remat_call(remat and cache is None, _layer_fwd, cfg,
+                       layer_slice(params["layers"], i), x, ls, plain)
     return x
 
 
@@ -181,3 +186,10 @@ def decode(cfg, params, cache, batch, pos, *, plain: bool = False):
     del pos  # the state is position-free
     x = _run(cfg, params, embed_tokens(params, batch), cache, plain)
     return _logits(cfg, params, x), cache
+
+
+def loss(cfg, params, batch, *, remat: bool = False, remat_policy=None,
+         plain: bool = False) -> torch.Tensor:
+    check_remat_policy(remat_policy)
+    x = _run(cfg, params, embed_tokens(params, batch), None, plain, remat)
+    return ce_from_hidden(cfg, params, x, batch_tokens(batch, x.device))

@@ -13,10 +13,19 @@ come before its token embeddings, so decode positions continue after
 
 ``plain=True`` runs every kernel's plain version in its stead (see
 :mod:`repro_torch.nn.layers`).
+
+``loss`` is the training objective: next-token cross-entropy from the
+final hidden states through :func:`ce_from_hidden`, which never holds the
+(B, S, vocab) logits.  ``remat=True`` recomputes each layer in the
+backward (``torch.utils.checkpoint``) where the JAX package wraps its scan
+body in ``jax.checkpoint``; a ``jax.checkpoint`` policy has no counterpart
+here, so ``remat_policy`` must be None.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..nn import layers as nn
@@ -96,21 +105,39 @@ def layer_slice(tree, i: int):
     return tree[i]
 
 
+def remat_call(remat: bool, fn, *args):
+    """``fn(*args)``, recomputed in the backward when ``remat`` (the
+    JAX package's ``jax.checkpoint`` around a scan body)."""
+    if remat:
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def check_remat_policy(remat_policy) -> None:
+    if remat_policy is not None:
+        raise ValueError("remat_policy: a jax.checkpoint policy has no PyTorch "
+                         "counterpart; pass None (remat=True recomputes whole layers)")
+
+
 def _run_layers(cfg: ModelConfig, params: dict, x: torch.Tensor,
                 cache: dict | None, cache_pos: int | None,
-                plain: bool) -> torch.Tensor:
+                plain: bool, remat: bool = False) -> torch.Tensor:
     for i in range(cfg.n_layers):
         lc = None if cache is None else layer_slice(cache["kv"], i)
-        x = _layer_fwd(cfg, layer_slice(params["layers"], i), x, lc, cache_pos,
-                       plain)
+        x = remat_call(remat and cache is None, _layer_fwd, cfg,
+                       layer_slice(params["layers"], i), x, lc, cache_pos, plain)
     return x
+
+
+def batch_tokens(batch: dict, device) -> torch.Tensor:
+    """``batch["tokens"]`` as an int64 tensor on ``device``."""
+    return torch.as_tensor(batch["tokens"], device=device).long()
 
 
 def embed_tokens(params: dict, batch: dict) -> torch.Tensor:
     """``batch["tokens"]`` (B, S) integers, moved to the params' device,
     through the embedding."""
-    table = params["embed"]["table"]
-    tokens = torch.as_tensor(batch["tokens"], device=table.device).long()
+    tokens = batch_tokens(batch, params["embed"]["table"].device)
     return nn.apply_embedding(params["embed"], tokens)
 
 
@@ -153,3 +180,66 @@ def decode(cfg: ModelConfig, params: dict, cache: dict, batch: dict, pos: int, *
     logits (B, 1, vocab) and the cache."""
     x = _run_layers(cfg, params, embed_tokens(params, batch), cache, pos, plain)
     return _logits(cfg, params, x), cache
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+
+def loss(cfg: ModelConfig, params: dict, batch: dict, *, remat: bool = False,
+         remat_policy=None, plain: bool = False) -> torch.Tensor:
+    """Mean next-token cross-entropy (float32 scalar) over the text tokens;
+    a VLM's patch positions are dropped before the head."""
+    check_remat_policy(remat_policy)
+    x = _run_layers(cfg, params, _trunk_in(cfg, params, batch), None, None, plain,
+                    remat)
+    if cfg.family == "vlm" and "patch_embeds" in batch:
+        x = x[:, batch["patch_embeds"].shape[1]:, :]
+    return ce_from_hidden(cfg, params, x, batch_tokens(batch, x.device))
+
+
+def _chunk_ce(xc: torch.Tensor, w: torch.Tensor, tc: torch.Tensor):
+    """Summed CE and the count of valid targets (>= 0) of one chunk."""
+    logits = torch.einsum("bcd,dv->bcv", xc, w).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = torch.gather(logits, -1, torch.clamp(tc, min=0)[..., None])[..., 0]
+    valid = (tc >= 0).float()
+    return torch.sum((lse - picked) * valid), torch.sum(valid)
+
+
+def ce_from_hidden(cfg: ModelConfig, params: dict, x: torch.Tensor,
+                   tokens: torch.Tensor, chunk: int | None = None) -> torch.Tensor:
+    """Memory-efficient next-token CE: the head product and logsumexp run
+    per sequence chunk of ``cfg.ce_chunk``, each recomputed in the backward,
+    so the (B, S, vocab) logits never exist at once.  Targets past the end
+    are padded with -1 and the mean is over the valid ones, as the JAX
+    package's scan does."""
+    x = nn.apply_norm(cfg.norm, params.get("ln_f"), x)
+    w = (params["embed"]["table"].T if cfg.tied_embeddings
+         else params["lm_head"]["w"])
+    xs = x[:, :-1, :]
+    targets = tokens[:, 1:]
+    S = xs.shape[1]
+    chunk = min(chunk or cfg.ce_chunk, S)
+    pad = (-S) % chunk
+    if pad:
+        xs = F.pad(xs, (0, 0, 0, pad))
+        targets = F.pad(targets, (0, pad), value=-1)
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c in range(0, S + pad, chunk):
+        s, n = checkpoint(_chunk_ce, xs[:, c:c + chunk], w, targets[:, c:c + chunk],
+                          use_reentrant=False)
+        tot = tot + s
+        cnt = cnt + n
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def next_token_loss(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """Dense-logits CE (the smoke-scale reference of ``ce_from_hidden``)."""
+    lf = logits[:, :-1, :].float()
+    targets = torch.as_tensor(tokens, device=lf.device).long()[:, 1:]
+    lse = torch.logsumexp(lf, dim=-1)
+    picked = torch.gather(lf, -1, targets[..., None])[..., 0]
+    return torch.mean(lse - picked)

@@ -6,7 +6,11 @@ Storage is the JAX package's: ``groups`` stacks (n_groups, attn_every)
 Mamba layers, ``shared_attn`` is one attention + MLP block, and the head
 is untied.  The cache stacks a Mamba state per Mamba layer and a KV cache
 per application of the shared block: one block's weights, 19 caches at
-full width.  Prefill and decode update the cache in place.
+full width.  Prefill and decode update the cache in place.  ``loss`` is
+the dense family's chunked next-token CE; ``remat=True`` recomputes each
+group (its Mamba layers and the shared block) in the backward.  On the
+card the loss raises until the SSD scan has a backward kernel (ROADMAP
+A9.1): its wrapper refuses an autograd graph.
 """
 from __future__ import annotations
 
@@ -15,7 +19,8 @@ import torch
 from ..configs.base import ModelConfig
 from ..nn import layers as nn
 from .mamba2 import apply_mamba2, mamba2_spec, mamba2_state_spec
-from .transformer import _logits, embed_tokens, layer_slice, stack_specs
+from .transformer import (_logits, batch_tokens, ce_from_hidden, check_remat_policy,
+                          embed_tokens, layer_slice, remat_call, stack_specs)
 
 
 def n_groups(cfg: ModelConfig) -> int:
@@ -69,19 +74,25 @@ def _shared_block(cfg, sp, x, cache=None, pos=None, plain=False):
     return x + nn.apply_mlp(sp["mlp"], nn.apply_rmsnorm(sp["ln2"], x))
 
 
-def _run(cfg, params, x, cache, pos, plain):
-    shared = params["shared_attn"]
+def _group(cfg, gp, shared, x, gcache, pos, plain):
+    """One group: ``attn_every`` Mamba layers, then the shared block."""
+    for j in range(cfg.attn_every):
+        lp = layer_slice(gp["mamba"], j)
+        st = None if gcache is None else layer_slice(gcache["mamba"], j)
+        h, _ = apply_mamba2(lp["block"], nn.apply_rmsnorm(lp["ln"], x), cfg,
+                            state=st, plain=plain)
+        x = x + h
+    kv = None if gcache is None else gcache["attn_kv"]
+    return _shared_block(cfg, shared, x, cache=kv, pos=pos, plain=plain)
+
+
+def _run(cfg, params, x, cache, pos, plain, remat=False):
     for g in range(n_groups(cfg)):
-        gp = layer_slice(params["groups"], g)
-        for j in range(cfg.attn_every):
-            lp = layer_slice(gp["mamba"], j)
-            st = (None if cache is None
-                  else layer_slice(layer_slice(cache["mamba"], g), j))
-            h, _ = apply_mamba2(lp["block"], nn.apply_rmsnorm(lp["ln"], x), cfg,
-                                state=st, plain=plain)
-            x = x + h
-        kv = None if cache is None else layer_slice(cache["attn_kv"], g)
-        x = _shared_block(cfg, shared, x, cache=kv, pos=pos, plain=plain)
+        gc = None if cache is None else {"mamba": layer_slice(cache["mamba"], g),
+                                         "attn_kv": layer_slice(cache["attn_kv"], g)}
+        x = remat_call(remat and cache is None, _group, cfg,
+                       layer_slice(params["groups"], g), params["shared_attn"], x,
+                       gc, pos, plain)
     return x
 
 
@@ -98,3 +109,10 @@ def prefill(cfg, params, batch, cache, *, plain: bool = False):
 def decode(cfg, params, cache, batch, pos, *, plain: bool = False):
     x = _run(cfg, params, embed_tokens(params, batch), cache, pos, plain)
     return _logits(cfg, params, x), cache
+
+
+def loss(cfg, params, batch, *, remat: bool = False, remat_policy=None,
+         plain: bool = False) -> torch.Tensor:
+    check_remat_policy(remat_policy)
+    x = _run(cfg, params, embed_tokens(params, batch), None, None, plain, remat)
+    return ce_from_hidden(cfg, params, x, batch_tokens(batch, x.device))

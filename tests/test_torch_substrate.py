@@ -120,6 +120,9 @@ import repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
 for n in names:
     importlib.import_module(n)
+assert {"repro_torch.training.optimizer", "repro_torch.training.checkpoint",
+        "repro_torch.training.train_loop", "repro_torch.data.pipeline",
+        "repro_torch.launch.train"} <= set(names), names
 from repro_torch.configs import SMOKES
 from repro_torch.core import build_instance_snapshot
 d = tempfile.mkdtemp()
