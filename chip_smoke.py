@@ -9,12 +9,13 @@ Phases, one JSON line each (any failure raises and exits non-zero):
 2. build: every kernel of ``src/repro_torch/csrc`` compiled with ``nvcc``
    for ``sm_90a`` (into ``build/repro_torch/``), then the scan kernels'
    and B3's backward kernels' registers, shared memory, spills and
-   tensor-core instructions;
+   tensor-core instructions (the bf16 backward's must have some);
 3. kernel checks: each kernel against its plain PyTorch version on the
    card at the main path's shapes, with its time, the plain version's,
    one library call's (a yardstick the port never calls) and its bound;
    B3's backward at olmo-1b's training shape (bf16 and f32), pixtral's
-   GQA shape and seamless's bidirectional one;
+   GQA shape and seamless's bidirectional one, each also called twice
+   and held bitwise equal;
 4. main path: full-width olmo-1b served through ``Orchestrator`` and
    ``Router`` -- register, a record request, scale to zero, a single cold
    start, a group restore of two, warm requests -- with the logits held
@@ -98,14 +99,21 @@ FLASH_BWD_CASES = [                  # (B, S, H, KV, D, dtype, causal)
     (4, 128, 16, 16, 64, "bfloat16", False),    # seamless-m4t-medium's encoder
 ]
 # B3's backward against its plain version on the same inputs (the
-# kernel's own output and LSE): both compute in float32, and the kernel
-# rounds each output once to the inputs' dtype.  So a bfloat16 output is
+# kernel's own output and LSE).  The plain version computes in float32.
+# The kernel's bfloat16 route runs its products on the tensor cores: the
+# products of bfloat16 inputs are exact and summed in float32, and P and
+# dS enter dV, dK and dQ as three bfloat16 parts (at least float32's 24
+# bits); its float32 route computes in float32 on the CUDA cores.  Each
+# rounds every output once to the inputs' dtype.  So a bfloat16 output is
 # within half an ulp of the float32 result, and a different order of
 # summation flips that rounding by one: KERNEL_ULPS ulps at each output's
 # largest magnitude, as the forward's gate.  A float32 output differs only
 # by the order of its sums: the forward check's 2e-5, scaled by the
 # output's largest magnitude where it passes 1 (dK and dV sum over up to
 # G * S query rows).
+# B3's backward's device kernels, by fragments of their names
+FLASH_BWD_KERNELS = {"delta": ("flash_bwd_delta",), "dkdv": ("flash_bwd_dkdv",),
+                     "dq": ("flash_bwd_dq",)}
 DECODE_CASES = [                     # (B, S, H, KV, D, dtype, kv_len or None = random)
     (2, 1024, 8, 2, 64, "float32", None),    # the three shapes of tests/test_kernels.py
     (1, 2048, 4, 4, 128, "float32", None),
@@ -213,7 +221,13 @@ def phase_build() -> None:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": build.last_build_seconds,
           "libraries": {s: str(p.relative_to(ROOT)) for s, p in libs.items()}})
-    emit({"phase": "ptxas", "kernels": scan_kernel_report(build.build_dir(), libs)})
+    report = scan_kernel_report(build.build_dir(), libs)
+    emit({"phase": "ptxas", "kernels": report})
+    # B3's bfloat16 backward runs on the tensor cores (unknown without cuobjdump)
+    scalar = [n for n, r in report.items()
+              if "flash_bwd" in n and "_bf16" in n and r["hmma"] == 0]
+    if scalar:
+        raise AssertionError(f"no HMMA instruction in {scalar}")
 
 
 def short_names(mangled: list[str]) -> dict[str, str]:
@@ -381,9 +395,10 @@ def check_flash(B: int, S: int, H: int, KV: int, D: int, dtype: str,
 def check_flash_bwd(B: int, S: int, H: int, KV: int, D: int, dtype: str,
                     causal: bool) -> dict:
     """B3's backward kernel against ``flash_attention_bwd_ref`` on the
-    kernel forward's own output and LSE.  ``plain_ms`` is the backward of
-    autograd through ``mha_ref`` (its graph kept, the backward alone
-    timed); ``library_ms`` the same of ``scaled_dot_product_attention``.
+    kernel forward's own output and LSE, and a second kernel call against
+    the first, byte for byte (``deterministic``).  ``plain_ms`` is the
+    backward of autograd through ``mha_ref`` (its graph kept, the backward
+    alone timed); ``library_ms`` the same of ``scaled_dot_product_attention``.
     The bound: q, k, v, o, dO and the LSE read once, dq, dk, dv written
     once, against five products (S and dP recomputed, dV, dK, dQ) over the
     causal half or every pair."""
@@ -405,8 +420,13 @@ def check_flash_bwd(B: int, S: int, H: int, KV: int, D: int, dtype: str,
     def kernel():
         return flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
     got = kernel()
+    again = kernel()
     want = flash_attention_bwd_ref(q, k, v, o, lse, do, causal)
     torch.cuda.synchronize()
+    # no atomics and a fixed order of sums: a second call gives the same bytes
+    same_bytes = all(torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+                     for a, b in zip(got, again))
+    del again
     errs, atols = {}, {}
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         errs[name] = float((g.float() - w).abs().max())
@@ -436,9 +456,13 @@ def check_flash_bwd(B: int, S: int, H: int, KV: int, D: int, dtype: str,
            "dtype": dtype, "errors": errs, "atols": atols,
            "max_abs_err": max(errs.values()),
            "ok": all(errs[n] <= atols[n] for n in errs),
+           "deterministic": same_bytes,
            "kernel_ms": ms["kernel"], "plain_ms": ms["plain"],
            "library_ms": ms["library"],
            "kernel_device_ms": device_profile(kernel, calls=3)[1],
+           # the same call's device ms by kernel, from one traced call
+           "kernel_device_ms_by_kernel": profile_forward(
+               kernel, iters=3, kernels=FLASH_BWD_KERNELS)["kernel_device_ms"],
            "library_kernels": library_kernels, "library_device_ms": library_device_ms,
            "bound_ms": b, "bound_by": by}
     del plain_out, lib_out, leaves
@@ -629,6 +653,9 @@ def phase_kernel_checks(ws_pages: int) -> dict:
         if not res["ok"]:
             raise AssertionError(f"flash_attention_bwd {case}: errors {res['errors']} "
                                  f"past {res['atols']}")
+        if not res["deterministic"]:
+            raise AssertionError(f"flash_attention_bwd {case}: two calls on the same "
+                                 "inputs gave different bytes")
         if case == FLASH_BWD_CASES[0]:
             rows["flash_attention_bwd"] = res
     for fn, cases, name, row_case in (

@@ -65,24 +65,65 @@
 // 16 heads of 128, bf16): five causal products (S and dP recomputed, dV,
 // dK, dQ), 43 G operations, 0.044 ms at 989 TFLOP/s, against about 134
 // MB of traffic (q, k, v, o, dO read, dq, dk, dv written, the LSE and
-// delta), 0.040 ms.  This first backward is the simple one: every product
-// runs in float32 on the CUDA cores, for both dtypes (bfloat16 inputs are
-// widened as they are staged), and each output is rounded once.  P and dS
-// keep float32's 24 bits: the forward showed that one bfloat16 P moves
-// outputs past a four-ulp gate, and dS = P (dP - delta) is a difference
-// of near-equal terms.  So it runs at the CUDA cores' rate, far from the
-// tensor cores' bound; PERF.md has its time.  Three kernels, no atomics
-// (deterministic):
-//   * flash_bwd_delta: delta = rowsum(dO * O), one warp per query row;
-//   * flash_bwd_dkdv: one CTA of 256 threads per (KV head, batch, 64-key
-//     tile).  K and V stay in shared memory; the CTA walks the G query
-//     heads of its KV head and the query tiles the causal mask keeps,
-//     recomputes S = Q K^T and dP = dO V^T (a 4 x 4 register tile a
-//     thread), P = exp(S - lse) and dS = P (dP - delta), and accumulates
+// delta), 0.040 ms.  On both routes P and dS keep float32's 24 bits: the
+// forward showed that one bfloat16 P moves outputs past a four-ulp gate,
+// and dS = P (dP - delta) is a difference of near-equal terms.  Both
+// routes use no atomics and sum in a fixed order, so two calls on the same
+// inputs give the same bytes (GQA's dK and dV are summed over the G query
+// heads inside one CTA).  Each output is rounded once.  flash_bwd_delta
+// runs first on both: delta = rowsum(dO * O), one warp per query row.
+//
+// bfloat16 -- tensor cores, FlashAttention-2's backward on mma.sync:
+//   * flash_bwd_dkdv_bf16: one CTA of 4 warps per (KV head, batch, 64-key
+//     tile); the first key tiles, which the causal mask leaves the most
+//     query tiles, start first.  Each warp owns 16 keys.  K and V are bf16
+//     in shared memory, padded as the forward's tiles, and this warp's
+//     rows of them are the A fragments of S^T = K Q^T and dP^T = V dO^T:
+//     with keys as rows, P^T and dS^T come out of the accumulators in the
+//     layout dV += P^T dO and dK += dS^T Q take as A, so no accumulator is
+//     transposed.  The CTA walks the G query heads of its KV head and the
+//     query tiles the mask keeps; each tile's Q, dO, lse and delta arrive
+//     by cp.async into a two-stage ring, the next in flight while this
+//     one computes.  S^T and dP^T are m16n8k16 bf16 -> f32 products
+//     (exact products, float32 sums).  P^T = exp2(S^T scale log2(e) -
+//     lse log2(e)) and dS^T = P^T (dP^T - delta) are formed in float32
+//     registers, the causal mask and the rows past S applied only on the
+//     tiles that reach them (a warp skips a half whose queries all precede
+//     its keys).  Each is then split into kPParts = 3 bf16 parts, each the
+//     bf16 rounding of what the parts before it leave, as the forward
+//     splits P: three mma for each of dV and dK, and nothing goes through
+//     shared memory.  dO's and Q's B fragments come from ldmatrix.trans.
+//     dK and dV stay in float32 registers until one rounded write,
+//     through the warp's own rows of sK and sV, then 16-byte stores.
+//     Registers at D = 128: the dK and dV accumulators alone take 128 a
+//     thread, and S^T and dP^T of a 64-query tile 64 more, so each query
+//     tile is taken in halves of kQSub = 32 queries: 255 registers, no
+//     spills (ptxas); the smaller head dims take the whole tile (160, 230
+//     and 248 registers at D = 32, 64, 80, no spills).
+//   * flash_bwd_dq_bf16: one CTA of 4 warps per (head, batch, 64-query
+//     tile), longest rows first; each warp owns 16 query rows.  Q and dO
+//     are staged once and read as A fragments (ldmatrix); K and V tiles
+//     come through the cp.async ring as B fragments.  S and dP on the
+//     tensor cores, P and dS in float32, dS split into three parts as the
+//     A fragment of dQ += dS K (K through ldmatrix.trans); dQ scaled and
+//     rounded once, through the warp's own rows of sQ (242 registers at
+//     D = 128, no spills).
+//   Thirteen causal products in all (S and dP in each kernel, dV, dK and
+//   dQ at three parts each), 2.6 times the bound's five.  Each kernel
+//   takes about 105 KB of shared memory at D = 128: two CTAs an SM.
+//
+// float32 -- CUDA cores, the first backward's kernels: TF32 would keep
+//   about three decimal digits, and the float32 route is the 2e-5
+//   precision check, so every product runs on scalar FMAs:
+//   * flash_bwd_dkdv_f32: one CTA of 256 threads per (KV head, batch,
+//     64-key tile).  K and V stay in shared memory; the CTA walks the G
+//     query heads of its KV head and the query tiles the causal mask
+//     keeps, recomputes S = Q K^T and dP = dO V^T (a 4 x 4 register tile
+//     a thread), P = exp(S - lse) and dS = P (dP - delta), and accumulates
 //     dV += P^T dO and dK += dS^T Q in registers (4 keys x D/16 columns a
-//     thread) until one write: GQA needs no atomics;
-//   * flash_bwd_dq: one CTA per (head, batch, 64-query tile), walking its
-//     key tiles, dQ += dS K in registers.
+//     thread) until one write;
+//   * flash_bwd_dq_f32: one CTA per (head, batch, 64-query tile), walking
+//     its key tiles, dQ += dS K in registers.
 //   Tiles are float32 in shared memory, rows padded by one float so the
 //   16 keys a warp reads at one column fall on 16 banks.
 
@@ -266,6 +307,25 @@ __device__ __forceinline__ float2 unpack_bf16(uint32_t u) {
   return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&u));
 }
 
+// One k-step of an A fragment (16 columns) from two accumulator n-tiles,
+// x0 (columns 0-7) and x1 (8-15), split into kPParts bf16 parts, each the
+// bf16 rounding of what the parts before it leave.
+__device__ __forceinline__ void split_a(const float (&x0)[4],
+                                        const float (&x1)[4],
+                                        uint32_t (&a)[kPParts][4]) {
+  float r[8] = {x0[0], x0[1], x0[2], x0[3], x1[0], x1[1], x1[2], x1[3]};
+#pragma unroll
+  for (int part = 0; part < kPParts; ++part) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      a[part][i] = pack_bf16(r[2 * i], r[2 * i + 1]);
+      const float2 back = unpack_bf16(a[part][i]);
+      r[2 * i] -= back.x;
+      r[2 * i + 1] -= back.y;
+    }
+  }
+}
+
 // Rows r0 .. r0 + 63 of a (rows, stride) bf16 matrix into a padded tile;
 // rows at or past S are zero-filled.
 template <int D>
@@ -406,32 +466,20 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
     // P V, 16 keys at a time: P's k-step kk is S's n-tiles 2kk (A
     // fragment registers a0, a1: rows g, g + 8) and 2kk + 1 (a2, a3), split
-    // into bf16 high and low parts; each is formed just before its
-    // products, so only one k-step of P is live in registers.
+    // into bf16 parts; each is formed just before its products, so only
+    // one k-step of P is live in registers.
 #pragma unroll
     for (int kk = 0; kk < SN / 2; ++kk) {
-      uint32_t pf[kPParts][4];
 #pragma unroll
-      for (int h2 = 0; h2 < 2; ++h2) {
-        const int j = 2 * kk + h2;
-        float p[4];
+      for (int j = 2 * kk; j < 2 * kk + 2; ++j) {
 #pragma unroll
         for (int e = 0; e < 4; ++e)
-          p[e] = exp2f(fmaf(s[j][e], scale_log2, -base[e >> 1]));
-        l[0] += p[0] + p[1];
-        l[1] += p[2] + p[3];
-#pragma unroll
-        for (int part = 0; part < kPParts; ++part) {
-          pf[part][2 * h2] = pack_bf16(p[0], p[1]);
-          pf[part][2 * h2 + 1] = pack_bf16(p[2], p[3]);
-          const float2 r01 = unpack_bf16(pf[part][2 * h2]);
-          const float2 r23 = unpack_bf16(pf[part][2 * h2 + 1]);
-          p[0] -= r01.x;
-          p[1] -= r01.y;
-          p[2] -= r23.x;
-          p[3] -= r23.y;
-        }
+          s[j][e] = exp2f(fmaf(s[j][e], scale_log2, -base[e >> 1]));
+        l[0] += s[j][0] + s[j][1];
+        l[1] += s[j][2] + s[j][3];
       }
+      uint32_t pf[kPParts][4];
+      split_a(s[2 * kk], s[2 * kk + 1], pf);
 #pragma unroll
       for (int np = 0; np < NT / 2; ++np) {
         uint32_t bv[4];
@@ -484,21 +532,13 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-// -- backward: float32 on the CUDA cores, for both dtypes -----------------------
+// -- backward: delta, both dtypes ---------------------------------------------
 
 constexpr int kBwdThreads = 256;          // 16 x 16: (row group, column group)
 constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ bf16 from_f32<bf16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // delta[b, h, s] = sum_d dO[b, s, h, d] * O[b, s, h, d]: one warp a row.
 template <typename T, int D>
@@ -524,15 +564,17 @@ flash_bwd_delta(const T* __restrict__ o, const T* __restrict__ dout,
   }
 }
 
+// -- backward, float32: CUDA-core FMAs ------------------------------------------
+
 // Rows r0 .. r0 + 63 of a (rows, stride) matrix into a float32 tile with
 // rows of Ld floats; rows at or past S are zero-filled.
-template <typename T, int D>
-__device__ __forceinline__ void stage_rows(float* dst, const T* src,
+template <int D>
+__device__ __forceinline__ void stage_rows(float* dst, const float* src,
                                            int64_t stride, int r0, int S,
                                            int Ld, int tid) {
   for (int e = tid; e < kBK * D; e += kBwdThreads) {
     const int r = e / D, d = e % D, s = r0 + r;
-    dst[r * Ld + d] = s < S ? to_f32(src[s * stride + d]) : 0.f;
+    dst[r * Ld + d] = s < S ? src[s * stride + d] : 0.f;
   }
 }
 
@@ -605,13 +647,13 @@ __device__ __forceinline__ void stage_stats(float* sL, float* sD,
   }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kBwdThreads)
-flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
-               const T* __restrict__ v, const T* __restrict__ dout,
-               const float* __restrict__ lse, const float* __restrict__ delta,
-               T* __restrict__ dk, T* __restrict__ dv, int S, int H, int KV,
-               float scale, int causal) {
+flash_bwd_dkdv_f32(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v, const float* __restrict__ dout,
+                   const float* __restrict__ lse, const float* __restrict__ delta,
+                   float* __restrict__ dk, float* __restrict__ dv, int S, int H,
+                   int KV, float scale, int causal) {
   constexpr int L = D + 1, LP = kBK + 1, NC = D / 16;
   static_assert(D % 16 == 0, "head dim a multiple of 16");
   extern __shared__ float smem[];
@@ -634,8 +676,8 @@ flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
   const int64_t kv_off = static_cast<int64_t>(b) * S * kv_row + kvh * D;
   const float scale_log2 = scale * kLog2e;
 
-  stage_rows<T, D>(sK, k + kv_off, kv_row, k0, S, L, tid);
-  stage_rows<T, D>(sV, v + kv_off, kv_row, k0, S, L, tid);
+  stage_rows<D>(sK, k + kv_off, kv_row, k0, S, L, tid);
+  stage_rows<D>(sV, v + kv_off, kv_row, k0, S, L, tid);
 
   // this thread's keys rg + 16a and columns cg + 16c
   float acc_k[4][NC], acc_v[4][NC];
@@ -652,8 +694,8 @@ flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
     for (int qt = causal ? kt : 0; qt < n_q; ++qt) {   // kBQ == kBK
       const int q0 = qt * kBQ;
       __syncthreads();                    // the last tile's reads are done
-      stage_rows<T, D>(sQ, q + q_off, q_row, q0, S, L, tid);
-      stage_rows<T, D>(sdO, dout + q_off, q_row, q0, S, L, tid);
+      stage_rows<D>(sQ, q + q_off, q_row, q0, S, L, tid);
+      stage_rows<D>(sdO, dout + q_off, q_row, q0, S, L, tid);
       stage_stats(sL, sD, lse + st_off, delta + st_off, q0, S, tid);
       __syncthreads();
       tile_p_ds<D>(sQ, sdO, sK, sV, sL, sD, sP, sdS, rg, cg, q0, k0, S, causal,
@@ -688,23 +730,23 @@ flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
   for (int a = 0; a < 4; ++a) {
     const int s = k0 + rg + 16 * a;
     if (s >= S) continue;
-    T* dkr = dk + kv_off + s * kv_row;
-    T* dvr = dv + kv_off + s * kv_row;
+    float* dkr = dk + kv_off + s * kv_row;
+    float* dvr = dv + kv_off + s * kv_row;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
-      dkr[cg + 16 * c] = from_f32<T>(acc_k[a][c] * scale);
-      dvr[cg + 16 * c] = from_f32<T>(acc_v[a][c]);
+      dkr[cg + 16 * c] = acc_k[a][c] * scale;
+      dvr[cg + 16 * c] = acc_v[a][c];
     }
   }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kBwdThreads)
-flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, const T* __restrict__ dout,
-             const float* __restrict__ lse, const float* __restrict__ delta,
-             T* __restrict__ dq, int S, int H, int KV, float scale,
-             int causal) {
+flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const float* __restrict__ dout,
+                 const float* __restrict__ lse, const float* __restrict__ delta,
+                 float* __restrict__ dq, int S, int H, int KV, float scale,
+                 int causal) {
   constexpr int L = D + 1, LP = kBK + 1, NC = D / 16;
   static_assert(D % 16 == 0, "head dim a multiple of 16");
   extern __shared__ float smem[];
@@ -729,8 +771,8 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
   const int64_t st_off = (static_cast<int64_t>(b) * H + h) * S;
   const float scale_log2 = scale * kLog2e;
 
-  stage_rows<T, D>(sQ, q + q_off, q_row, q0, S, L, tid);
-  stage_rows<T, D>(sdO, dout + q_off, q_row, q0, S, L, tid);
+  stage_rows<D>(sQ, q + q_off, q_row, q0, S, L, tid);
+  stage_rows<D>(sdO, dout + q_off, q_row, q0, S, L, tid);
   stage_stats(sL, sD, lse + st_off, delta + st_off, q0, S, tid);
 
   // this thread's rows rg + 16a and columns cg + 16c
@@ -745,8 +787,8 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
   for (int kt = 0; kt < kv_end; ++kt) {
     const int k0 = kt * kBK;
     __syncthreads();                      // the last tile's reads are done
-    stage_rows<T, D>(sK, k + kv_off, kv_row, k0, S, L, tid);
-    stage_rows<T, D>(sV, v + kv_off, kv_row, k0, S, L, tid);
+    stage_rows<D>(sK, k + kv_off, kv_row, k0, S, L, tid);
+    stage_rows<D>(sV, v + kv_off, kv_row, k0, S, L, tid);
     __syncthreads();
     tile_p_ds<D>(sQ, sdO, sK, sV, sL, sD, nullptr, sdS, rg, cg, q0, k0, S,
                  causal, scale_log2);
@@ -770,17 +812,383 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
   for (int a = 0; a < 4; ++a) {
     const int s = q0 + rg + 16 * a;
     if (s >= S) continue;
-    T* dqr = dq + q_off + s * q_row;
+    float* dqr = dq + q_off + s * q_row;
 #pragma unroll
-    for (int c = 0; c < NC; ++c) dqr[cg + 16 * c] = from_f32<T>(acc[a][c] * scale);
+    for (int c = 0; c < NC; ++c) dqr[cg + 16 * c] = acc[a][c] * scale;
   }
 }
 
-template <typename T, int D>
-int launch_bwd(const void* q, const void* k, const void* v, const void* o,
-               const float* lse, const void* dout, float* delta, void* dq,
-               void* dk, void* dv, int B, int S, int H, int KV, float scale,
-               int causal, cudaStream_t stream) {
+// -- backward, bfloat16: tensor cores ------------------------------------------
+
+template <int D>
+struct BwdTile {
+  using T = Tile<D>;
+  // queries of S^T and dP^T a dK/dV warp holds at once: at D = 128 the dK
+  // and dV accumulators take 128 registers a thread, so the 64-query tile
+  // is taken in halves
+  static constexpr int kQSub = D >= 128 ? 32 : kBQ;
+  // dK/dV: K and V, two stages of Q and dO, two stages of lse and delta
+  static constexpr size_t kSmemKV =
+      sizeof(bf16) * 6 * T::kElems + sizeof(float) * 4 * kBQ;
+  // dQ: Q and dO, two stages of K and V
+  static constexpr size_t kSmemQ = sizeof(bf16) * 6 * T::kElems;
+};
+static_assert(kThreads == 2 * kBQ, "one thread a row of lse or delta");
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkdv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, bf16* __restrict__ dk,
+                    bf16* __restrict__ dv, int S, int H, int KV, float scale,
+                    int causal) {
+  using T = Tile<D>;
+  constexpr int Ld = T::kLd;
+  constexpr int KS = D / 16;              // k-steps of K Q^T and V dO^T
+  constexpr int NT = D / 8;               // n-tiles of dK and dV
+  constexpr int QS = BwdTile<D>::kQSub;
+  constexpr int SN = QS / 8;              // n-tiles of S^T and dP^T
+  static_assert(D % 16 == 0 && kBQ % QS == 0, "tile shapes");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sK = reinterpret_cast<bf16*>(smem_raw);
+  bf16* sV = sK + T::kElems;
+  bf16* sQ = sV + T::kElems;              // stages at sQ, sQ + kElems
+  bf16* sdO = sQ + 2 * T::kElems;
+  float* sL = reinterpret_cast<float*>(sdO + 2 * T::kElems);   // 2 stages
+  float* sDl = sL + 2 * kBQ;
+
+  const int kvh = blockIdx.x, b = blockIdx.y;
+  const int kt = blockIdx.z;              // causal: the first tiles work most
+  const int G = H / KV;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int k0 = kt * kBK;
+  const int wk0 = k0 + warp * 16;         // this warp's first key
+  const int64_t q_row = static_cast<int64_t>(H) * D;
+  const int64_t kv_row = static_cast<int64_t>(KV) * D;
+  const int64_t kv_off = static_cast<int64_t>(b) * S * kv_row + kvh * D;
+  const float scale_log2 = scale * kLog2e;
+
+  // the CTA's steps: query tiles qt0 .. n_q - 1 of each of the G heads
+  const int n_q = (S + kBQ - 1) / kBQ;
+  const int qt0 = causal ? kt : 0;        // kBQ == kBK
+  const int per_head = n_q - qt0;
+  const int n_steps = G * per_head;
+
+  // Q, dO, lse and delta of step i into stage st
+  auto stage = [&](int i, int st) {
+    const int h = kvh * G + i / per_head;
+    const int q0 = (qt0 + i % per_head) * kBQ;
+    const int64_t q_off = static_cast<int64_t>(b) * S * q_row + h * D;
+    load_tile<D>(sQ + st * T::kElems, q + q_off, q_row, q0, S, tid);
+    load_tile<D>(sdO + st * T::kElems, dout + q_off, q_row, q0, S, tid);
+    const int r = tid % kBQ;
+    const bool in = q0 + r < S;
+    const float* src = (tid < kBQ ? lse : delta) +
+                       (static_cast<int64_t>(b) * H + h) * S + (in ? q0 + r : 0);
+    cp_async::copy4((tid < kBQ ? sL : sDl) + st * kBQ + r, src, in);
+  };
+
+  load_tile<D>(sK, k + kv_off, kv_row, k0, S, tid);
+  load_tile<D>(sV, v + kv_off, kv_row, k0, S, tid);
+  stage(0, 0);
+  cp_async::commit();
+
+  // ldmatrix row offsets of this lane, as in the forward
+  const int a_row = (lane & 7) + 8 * ((lane >> 3) & 1), a_col = 8 * (lane >> 4);
+  const int b_row = (lane & 7) + 8 * (lane >> 4), b_col = 8 * ((lane >> 3) & 1);
+
+  float acc_k[NT][4], acc_v[NT][4];       // rows: keys g, g + 8 of the warp
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_k[n][e] = acc_v[n][e] = 0.f;
+
+  for (int i = 0; i < n_steps; ++i) {
+    const int st = i & 1;
+    if (i + 1 < n_steps) stage(i + 1, st ^ 1);
+    cp_async::commit();
+    cp_async::wait<1>();                  // step i (and K, V) have landed
+    __syncthreads();
+    const int q0 = (qt0 + i % per_head) * kBQ;
+    const bf16* cQ = sQ + st * T::kElems;
+    const bf16* cdO = sdO + st * T::kElems;
+    const float* cL = sL + st * kBQ;
+    const float* cD = sDl + st * kBQ;
+
+#pragma unroll
+    for (int hq = 0; hq < kBQ / QS; ++hq) {
+      const int qs0 = q0 + hq * QS;       // the half's first query
+      // every query past S, or before this warp's first key: P = 0
+      if (qs0 >= S || (causal && qs0 + QS - 1 < wk0)) continue;
+
+      // S^T = K Q^T and dP^T = V dO^T: rows keys, columns queries
+      float s[SN][4], dp[SN][4];
+#pragma unroll
+      for (int j = 0; j < SN; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        uint32_t ka[4], va[4];
+        ldsm_x4(smem_addr(sK + (warp * 16 + a_row) * Ld + ks * 16 + a_col), ka);
+        ldsm_x4(smem_addr(sV + (warp * 16 + a_row) * Ld + ks * 16 + a_col), va);
+#pragma unroll
+        for (int jp = 0; jp < SN / 2; ++jp) {
+          const int row = hq * QS + jp * 16 + b_row;
+          uint32_t bq[4], bo[4];
+          ldsm_x4(smem_addr(cQ + row * Ld + ks * 16 + b_col), bq);
+          ldsm_x4(smem_addr(cdO + row * Ld + ks * 16 + b_col), bo);
+          mma_bf16(s[2 * jp], ka, bq[0], bq[1]);
+          mma_bf16(s[2 * jp + 1], ka, bq[2], bq[3]);
+          mma_bf16(dp[2 * jp], va, bo[0], bo[1]);
+          mma_bf16(dp[2 * jp + 1], va, bo[2], bo[3]);
+        }
+      }
+
+      // P^T into s, dS^T into dp; the mask only where it reaches
+      const bool edge = (causal && wk0 + 15 > qs0) || qs0 + QS > S ||
+                        wk0 + 16 > S;
+#pragma unroll
+      for (int j = 0; j < SN; ++j) {
+        const int col = hq * QS + j * 8 + 2 * t;   // query in the tile
+        const float2 l2 = *reinterpret_cast<const float2*>(cL + col);
+        const float2 d2 = *reinterpret_cast<const float2*>(cD + col);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float lq = (e & 1) ? l2.y : l2.x;
+          float p = exp2f(fmaf(s[j][e], scale_log2, -lq * kLog2e));
+          if (edge) {
+            const int kpos = wk0 + g + 8 * (e >> 1), qpos = q0 + col + (e & 1);
+            if (qpos >= S || kpos >= S || (causal && kpos > qpos)) p = 0.f;
+          }
+          s[j][e] = p;
+          dp[j][e] = p * (dp[j][e] - ((e & 1) ? d2.y : d2.x));
+        }
+      }
+
+      // dV += P^T dO and dK += dS^T Q, 16 queries a k-step
+#pragma unroll
+      for (int kk = 0; kk < SN / 2; ++kk) {
+        uint32_t pa[kPParts][4], da[kPParts][4];
+        split_a(s[2 * kk], s[2 * kk + 1], pa);
+        split_a(dp[2 * kk], dp[2 * kk + 1], da);
+        const int row = hq * QS + kk * 16 + a_row;
+#pragma unroll
+        for (int np = 0; np < NT / 2; ++np) {
+          uint32_t bo[4], bq[4];
+          ldsm_x4_trans(smem_addr(cdO + row * Ld + np * 16 + a_col), bo);
+          ldsm_x4_trans(smem_addr(cQ + row * Ld + np * 16 + a_col), bq);
+#pragma unroll
+          for (int part = 0; part < kPParts; ++part) {
+            mma_bf16(acc_v[2 * np], pa[part], bo[0], bo[1]);
+            mma_bf16(acc_v[2 * np + 1], pa[part], bo[2], bo[3]);
+            mma_bf16(acc_k[2 * np], da[part], bq[0], bq[1]);
+            mma_bf16(acc_k[2 * np + 1], da[part], bq[2], bq[3]);
+          }
+        }
+      }
+    }
+    __syncthreads();                      // stage st is refilled next
+  }
+
+  // dK and dV into the warp's own rows of sK and sV (only this warp read
+  // them), then 16-byte stores of the rows below S
+  const int orow = warp * 16 + g;
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    const int col = n * 8 + 2 * t;
+    *reinterpret_cast<uint32_t*>(sK + orow * Ld + col) =
+        pack_bf16(acc_k[n][0] * scale, acc_k[n][1] * scale);
+    *reinterpret_cast<uint32_t*>(sK + (orow + 8) * Ld + col) =
+        pack_bf16(acc_k[n][2] * scale, acc_k[n][3] * scale);
+    *reinterpret_cast<uint32_t*>(sV + orow * Ld + col) =
+        pack_bf16(acc_v[n][0], acc_v[n][1]);
+    *reinterpret_cast<uint32_t*>(sV + (orow + 8) * Ld + col) =
+        pack_bf16(acc_v[n][2], acc_v[n][3]);
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < kBK * T::kChunks / kThreads; ++i) {
+    const int c = tid + i * kThreads;
+    const int r = c / T::kChunks, col = (c % T::kChunks) * 8;
+    if (k0 + r < S) {
+      const int64_t off = kv_off + (k0 + r) * kv_row + col;
+      *reinterpret_cast<uint4*>(dk + off) =
+          *reinterpret_cast<const uint4*>(sK + r * Ld + col);
+      *reinterpret_cast<uint4*>(dv + off) =
+          *reinterpret_cast<const uint4*>(sV + r * Ld + col);
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                  const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                  const float* __restrict__ lse,
+                  const float* __restrict__ delta, bf16* __restrict__ dq,
+                  int S, int H, int KV, float scale, int causal) {
+  using T = Tile<D>;
+  constexpr int Ld = T::kLd;
+  constexpr int KS = D / 16;              // k-steps of Q K^T and dO V^T
+  constexpr int NT = D / 8;               // n-tiles of dQ
+  constexpr int SN = kBK / 8;             // n-tiles of S and dP
+  static_assert(D % 16 == 0, "head dim a multiple of 16");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
+  bf16* sdO = sQ + T::kElems;
+  bf16* sK = sdO + T::kElems;             // stages at sK, sK + kElems
+  bf16* sV = sK + 2 * T::kElems;
+
+  const int n_q = (S + kBQ - 1) / kBQ;
+  const int qt = n_q - 1 - static_cast<int>(blockIdx.z);   // longest first
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int kvh = h / (H / KV);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int q0 = qt * kBQ;
+  const int wq0 = q0 + warp * 16;         // this warp's first query row
+  const int64_t q_row = static_cast<int64_t>(H) * D;
+  const int64_t kv_row = static_cast<int64_t>(KV) * D;
+  const int64_t q_off = static_cast<int64_t>(b) * S * q_row + h * D;
+  const bf16* kb = k + static_cast<int64_t>(b) * S * kv_row + kvh * D;
+  const bf16* vb = v + static_cast<int64_t>(b) * S * kv_row + kvh * D;
+  const float scale_log2 = scale * kLog2e;
+
+  const int n_kv = (S + kBK - 1) / kBK;
+  const int kv_end = causal ? min(n_kv, qt + 1) : n_kv;    // kBQ == kBK
+
+  load_tile<D>(sQ, q + q_off, q_row, q0, S, tid);
+  load_tile<D>(sdO, dout + q_off, q_row, q0, S, tid);
+  load_tile<D>(sK, kb, kv_row, 0, S, tid);
+  load_tile<D>(sV, vb, kv_row, 0, S, tid);
+  cp_async::commit();
+
+  // lse * log2(e) and delta of this lane's rows g and g + 8 (zero past S)
+  float lq[2], dl[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = wq0 + g + 8 * i;
+    const int64_t at = (static_cast<int64_t>(b) * H + h) * S + row;
+    lq[i] = row < S ? lse[at] * kLog2e : 0.f;
+    dl[i] = row < S ? delta[at] : 0.f;
+  }
+
+  const int a_row = (lane & 7) + 8 * ((lane >> 3) & 1), a_col = 8 * (lane >> 4);
+  const int b_row = (lane & 7) + 8 * (lane >> 4), b_col = 8 * ((lane >> 3) & 1);
+
+  float acc[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  for (int kt = 0; kt < kv_end; ++kt) {
+    const int st = kt & 1;
+    if (kt + 1 < kv_end) {
+      load_tile<D>(sK + (st ^ 1) * T::kElems, kb, kv_row, (kt + 1) * kBK, S,
+                   tid);
+      load_tile<D>(sV + (st ^ 1) * T::kElems, vb, kv_row, (kt + 1) * kBK, S,
+                   tid);
+    }
+    cp_async::commit();
+    cp_async::wait<1>();                  // tile kt (and Q, dO) have landed
+    __syncthreads();
+    const int k0 = kt * kBK;
+    const bf16* cK = sK + st * T::kElems;
+    const bf16* cV = sV + st * T::kElems;
+
+    // S = Q K^T and dP = dO V^T
+    float s[SN][4], dp[SN][4];
+#pragma unroll
+    for (int j = 0; j < SN; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      uint32_t qa[4], oa[4];
+      ldsm_x4(smem_addr(sQ + (warp * 16 + a_row) * Ld + ks * 16 + a_col), qa);
+      ldsm_x4(smem_addr(sdO + (warp * 16 + a_row) * Ld + ks * 16 + a_col), oa);
+#pragma unroll
+      for (int jp = 0; jp < SN / 2; ++jp) {
+        uint32_t bk[4], bv[4];
+        ldsm_x4(smem_addr(cK + (jp * 16 + b_row) * Ld + ks * 16 + b_col), bk);
+        ldsm_x4(smem_addr(cV + (jp * 16 + b_row) * Ld + ks * 16 + b_col), bv);
+        mma_bf16(s[2 * jp], qa, bk[0], bk[1]);
+        mma_bf16(s[2 * jp + 1], qa, bk[2], bk[3]);
+        mma_bf16(dp[2 * jp], oa, bv[0], bv[1]);
+        mma_bf16(dp[2 * jp + 1], oa, bv[2], bv[3]);
+      }
+    }
+
+    // dS into dp; the mask only on the tiles that reach past this warp's
+    // first row or past S
+    const bool edge = (causal && k0 + kBK - 1 > wq0) || k0 + kBK > S;
+#pragma unroll
+    for (int j = 0; j < SN; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = exp2f(fmaf(s[j][e], scale_log2, -lq[e >> 1]));
+        if (edge) {
+          const int kpos = k0 + j * 8 + 2 * t + (e & 1);
+          const int qpos = wq0 + g + 8 * (e >> 1);
+          if (kpos >= S || (causal && kpos > qpos)) p = 0.f;
+        }
+        dp[j][e] = p * (dp[j][e] - dl[e >> 1]);
+      }
+
+    // dQ += dS K, 16 keys a k-step
+#pragma unroll
+    for (int kk = 0; kk < SN / 2; ++kk) {
+      uint32_t da[kPParts][4];
+      split_a(dp[2 * kk], dp[2 * kk + 1], da);
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t bk[4];
+        ldsm_x4_trans(
+            smem_addr(cK + (kk * 16 + a_row) * Ld + np * 16 + a_col), bk);
+#pragma unroll
+        for (int part = 0; part < kPParts; ++part) {
+          mma_bf16(acc[2 * np], da[part], bk[0], bk[1]);
+          mma_bf16(acc[2 * np + 1], da[part], bk[2], bk[3]);
+        }
+      }
+    }
+    __syncthreads();                      // stage st is refilled next
+  }
+
+  // dQ through the warp's own rows of sQ, then 16-byte stores below S
+  const int orow = warp * 16 + g;
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    const int col = n * 8 + 2 * t;
+    *reinterpret_cast<uint32_t*>(sQ + orow * Ld + col) =
+        pack_bf16(acc[n][0] * scale, acc[n][1] * scale);
+    *reinterpret_cast<uint32_t*>(sQ + (orow + 8) * Ld + col) =
+        pack_bf16(acc[n][2] * scale, acc[n][3] * scale);
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < kBQ * T::kChunks / kThreads; ++i) {
+    const int c = tid + i * kThreads;
+    const int r = c / T::kChunks, col = (c % T::kChunks) * 8;
+    if (q0 + r < S)
+      *reinterpret_cast<uint4*>(dq + q_off + (q0 + r) * q_row + col) =
+          *reinterpret_cast<const uint4*>(sQ + r * Ld + col);
+  }
+}
+
+// -- backward launch ----------------------------------------------------------
+
+// delta, then the route's dK/dV kernel and its dQ kernel, on one stream
+template <typename T, int D, typename DkdvKernel, typename DqKernel>
+int launch_bwd(DkdvKernel dkdv, size_t smem_kv, DqKernel dq_kernel,
+               size_t smem_q, int threads, const void* q, const void* k,
+               const void* v, const void* o, const float* lse,
+               const void* dout, float* delta, void* dq, void* dk, void* dv,
+               int B, int S, int H, int KV, float scale, int causal,
+               cudaStream_t stream) {
   const auto* tq = static_cast<const T*>(q);
   const auto* tk = static_cast<const T*>(k);
   const auto* tv = static_cast<const T*>(v);
@@ -794,23 +1202,20 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o,
   if (err != cudaSuccess) return static_cast<int>(err);
 
   const int n_t = (S + kBK - 1) / kBK;
-  constexpr size_t smem_kv = bwd_smem_bytes<D>(2);
-  err = cudaFuncSetAttribute(flash_bwd_dkdv<T, D>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+  err = cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem_kv));
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_bwd_dkdv<T, D><<<dim3(KV, B, n_t), kBwdThreads, smem_kv, stream>>>(
+  dkdv<<<dim3(KV, B, n_t), threads, smem_kv, stream>>>(
       tq, tk, tv, tdo, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), S,
       H, KV, scale, causal);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  constexpr size_t smem_q = bwd_smem_bytes<D>(1);
-  err = cudaFuncSetAttribute(flash_bwd_dq<T, D>,
+  err = cudaFuncSetAttribute(dq_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem_q));
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_bwd_dq<T, D><<<dim3(H, B, n_t), kBwdThreads, smem_q, stream>>>(
+  dq_kernel<<<dim3(H, B, n_t), threads, smem_q, stream>>>(
       tq, tk, tv, tdo, lse, delta, static_cast<T*>(dq), S, H, KV, scale,
       causal);
   return static_cast<int>(cudaGetLastError());
@@ -823,11 +1228,15 @@ int launch_bwd_dtype(const void* q, const void* k, const void* v,
                      int H, int KV, int dtype, float scale, int causal,
                      cudaStream_t stream) {
   if (dtype == 0)
-    return launch_bwd<float, D>(q, k, v, o, lse, dout, delta, dq, dk, dv, B, S,
-                                H, KV, scale, causal, stream);
+    return launch_bwd<float, D>(
+        flash_bwd_dkdv_f32<D>, bwd_smem_bytes<D>(2), flash_bwd_dq_f32<D>,
+        bwd_smem_bytes<D>(1), kBwdThreads, q, k, v, o, lse, dout, delta, dq,
+        dk, dv, B, S, H, KV, scale, causal, stream);
   if (dtype == 1)
-    return launch_bwd<bf16, D>(q, k, v, o, lse, dout, delta, dq, dk, dv, B, S,
-                               H, KV, scale, causal, stream);
+    return launch_bwd<bf16, D>(
+        flash_bwd_dkdv_bf16<D>, BwdTile<D>::kSmemKV, flash_bwd_dq_bf16<D>,
+        BwdTile<D>::kSmemQ, kThreads, q, k, v, o, lse, dout, delta, dq, dk,
+        dv, B, S, H, KV, scale, causal, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

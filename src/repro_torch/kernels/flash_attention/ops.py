@@ -62,8 +62,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True):
     """The backward kernel: dq, dk, dv (the shapes and dtype of q, k, v) of
     ``mha``'s output ``o`` with row log-sum-exps ``lse`` (B, H, S) float32,
-    given the output's gradient ``do``.  CUDA tensors only: the plain
-    version is ``ref.flash_attention_bwd_ref``."""
+    given the output's gradient ``do``.  bfloat16 runs on the tensor cores
+    (P and dS as three bfloat16 parts), float32 on the CUDA cores; neither
+    uses atomics, so two calls give the same bytes.  CUDA tensors only: the
+    plain version is ``ref.flash_attention_bwd_ref``."""
     _check_kernel_inputs("flash_attention_bwd", q, k, v, o, do)
     B, S, H, D = q.shape
     if (o.shape != q.shape or do.shape != q.shape or k.shape != v.shape

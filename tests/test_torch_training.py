@@ -456,6 +456,10 @@ CUDA_BWD_SHAPES = [                     # (B, S, H, KV, D, dtype, causal)
     (1, 130, 4, 4, 32, "float32", True),
     (2, 256, 8, 2, 128, "bfloat16", True),
     (1, 128, 4, 4, 64, "bfloat16", False),
+    (2, 200, 4, 4, 32, "bfloat16", True),      # the tensor-core route at every head dim,
+    (1, 200, 6, 2, 80, "bfloat16", True),      # at a ragged causal length (D = 80: five
+    (2, 200, 8, 2, 64, "bfloat16", True),      # k-steps), GQA with G = 4,
+    (1, 136, 4, 4, 128, "bfloat16", False),    # and bidirectional past a tile at D = 128
 ]
 
 
@@ -486,6 +490,21 @@ def test_cuda_flash_bwd_matches_plain(cuda, B, S, H, KV, D, dtype, causal):
     ref_leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
     ref = torch.autograd.grad(mha_ref(*ref_leaves, causal=causal), ref_leaves, do)
     _close(grads, [r.float() for r in ref], dtype, extra_ulps=1)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_bwd_bf16_is_deterministic(cuda):
+    """Two calls of the bfloat16 backward kernel on the same inputs give
+    bitwise-equal dq, dk and dv: no atomics and a fixed order of sums (GQA's
+    dK and dV summed over the G query heads inside one CTA), so a restarted
+    run's losses are bitwise the uninterrupted run's."""
+    q, k, v, do = _attn_inputs(2, 200, 8, 2, 128, torch.bfloat16, cuda, seed=3)
+    from repro_torch.kernels.flash_attention.ops import _forward
+    o, lse = _forward(q, k, v, True, want_lse=True)
+    first = flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    second = flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    for name, a, b in zip("qkv", first, second):
+        assert torch.equal(a.view(torch.int16), b.view(torch.int16)), name
 
 
 def _close(got, want, dtype, extra_ulps=0):
