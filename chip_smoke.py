@@ -14,8 +14,10 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    card at the main path's shapes, with its time, the plain version's,
    one library call's (a yardstick the port never calls) and its bound;
    B3's backward at olmo-1b's training shape (bf16 and f32), pixtral's
-   GQA shape and seamless's bidirectional one, each also called twice
-   and held bitwise equal;
+   GQA shape and seamless's bidirectional one, and B6's and B5's
+   backward at zamba2-1.2b's and rwkv6-7b's training shapes and two
+   small float32 shapes each, every backward also called twice and held
+   bitwise equal;
 4. main path: full-width olmo-1b served through ``Orchestrator`` and
    ``Router`` -- register, a record request, scale to zero, a single cold
    start, a group restore of two, warm requests -- with the logits held
@@ -53,7 +55,11 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    restore of its step-3 checkpoint (0 faults, bitwise the saved
    tensors), its losses held to an uninterrupted run's, and the step's
    profile, checkpoint bytes, stage, write and restore seconds and the
-   checkpoints' peak disk;
+   checkpoints' peak disk; then zamba2-1.2b (full depth) and rwkv6-7b
+   (8 of its 32 layers) train at full width: a float32 twin's step held
+   to the plain versions', the bf16 step finite, one step with exactly a
+   B6 (B5) forward and backward per layer and B3's per shared-block
+   application, the s per step and a traced step;
 9. the launch counts of each path (counts set to 0 just before it, read
    just after; the fleet path's from its children), the kernel table,
    and the last line ``{"ok": true, "device": {...}}``.
@@ -146,6 +152,25 @@ WKV_CASES = [                        # (B, L, H, D, chunk, r/k/v dtype)
     (4, 1, 64, 64, 1, "bfloat16"),           # rwkv6-7b decode step
 ]
 WKV_ATOL = 1e-3                      # tests/test_kernels.py
+SSD_BWD_CASES = [                    # (Bz, L, H, P, N, x dtype)
+    (4, 1024, 64, 64, 64, "bfloat16"),       # zamba2-1.2b training: the table's row
+    (2, 203, 4, 64, 32, "float32"),          # ragged L (not a multiple of 8)
+    (1, 77, 2, 128, 16, "float32"),
+]
+WKV_BWD_CASES = [                    # (B, L, H, D, r/k/v dtype)
+    (4, 1024, 64, 64, "bfloat16"),           # rwkv6-7b training: the table's row
+    (2, 203, 4, 64, "float32"),              # ragged L
+    (1, 77, 2, 32, "float32"),
+]
+# The scans' backward kernels against their oracles (``ssd_scan_bwd_ref``,
+# ``wkv6_bwd_ref``) on the same inputs, a nonzero initial state and final
+# state cotangent.  Both walk the recurrence a step at a time in float32
+# and differ in the order of their sums (over a row, the warps, b, t and
+# the heads): a float32 gradient within the forward kernel's bound
+# relative to its largest magnitude (B6's SSD_ATOL, B5's 1.2e-5 of
+# F32_KERNEL_ATOL); a bfloat16 dx, dr, dk or dv is rounded once from
+# float32, so KERNEL_ULPS ulps at its largest magnitude.
+SCAN_BWD_REL = {"ssd_scan_bwd": SSD_ATOL, "wkv6_scan_bwd": 1.2e-5}
 
 
 def emit(obj: dict) -> None:
@@ -627,6 +652,112 @@ def check_wkv6(B: int, L: int, H: int, D: int, chunk: int, dt: str) -> dict:
             "library_ms": None, "bound_ms": b, "bound_by": by}
 
 
+def scan_bwd_report(name: str, names: tuple, kernel, oracle, leaves, outs, cotangents,
+                    n_bytes: float, n_ops: float, iters: int) -> dict:
+    """A scan's backward kernel against its oracle, twice (``deterministic``:
+    the same bytes), with its time, its device time, the plain version's
+    (autograd of the plain scan, its graph kept, the backward alone timed)
+    and its bound at split TF32.  No single library call computes either
+    gradient: library_ms is None."""
+    import torch
+    got = kernel()
+    again = kernel()
+    want = oracle()
+    torch.cuda.synchronize()
+    same_bytes = all(torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+                     for a, b in zip(got, again))
+    errs, atols = {}, {}
+    for n, g, w in zip(names, got, want):
+        w = w.float()
+        errs[n] = float((g.float() - w).abs().max())
+        atols[n] = (KERNEL_ULPS * bf16_ulp(w) if g.dtype == torch.bfloat16 else
+                    SCAN_BWD_REL[name] * float(w.abs().max()))
+    del got, again, want
+
+    def plain():
+        return torch.autograd.grad(outs, leaves, cotangents, retain_graph=True)
+    ms = cuda_ms_in_turns({"kernel": kernel, "plain": plain}, iters)
+    b, by = bound_ms(n_bytes, n_ops, "tf32")
+    return {"kernel": name, "errors": errs, "atols": atols,
+            "max_abs_err": max(errs.values()),
+            "ok": all(errs[n] <= atols[n] for n in errs), "deterministic": same_bytes,
+            "kernel_ms": ms["kernel"], "plain_ms": ms["plain"],
+            "kernel_device_ms": device_profile(kernel, calls=3)[1],
+            "library_ms": None, "bound_ms": b, "bound_by": by}
+
+
+def check_ssd_bwd(Bz: int, L: int, H: int, P: int, N: int, xdt: str) -> dict:
+    """ssd_scan_bwd against ssd_scan_bwd_ref.  The bound: x, dt, A, B, C,
+    h0, dy and dhT read once, dx, ddt, dA, dB, dC and dh0 written once,
+    against the chunked form's products at the forward kernel's chunk: C
+    B^T recomputed and its two gradients, M x's and C h's two gradients
+    each, the chunk states recomputed and their update's two gradients,
+    at split TF32 (three products a multiply-add; two where one operand is
+    x in bfloat16)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.mamba2_scan import ssd_scan_bwd, ssd_scan_bwd_ref, ssd_scan_ref
+    rng = np.random.default_rng(L * 10 + H + 1)
+
+    def r(*shape, scale=1.0):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32) * scale
+                                ).to("cuda")
+    x = r(Bz, L, H, P).to(getattr(torch, xdt))
+    dt, A = r(Bz, L, H, scale=0.1).abs(), -r(H).abs()
+    B, C, h0 = r(Bz, L, N, scale=0.3), r(Bz, L, N, scale=0.3), r(Bz, H, N, P, scale=0.1)
+    dy, dhT = r(Bz, L, H, P), r(Bz, H, N, P)
+    args = (x, dt, A, B, C, h0)
+    leaves = [t.clone().requires_grad_(True) for t in args]
+    outs = ssd_scan_ref(*leaves, chunk=128)
+    ops = ssd_operations(Bz, L, H, P, N, SSD_KERNEL_CHUNK)
+    px = 2 if xdt == "bfloat16" else 3
+    n_ops = 9 * ops["CB"] + (px + 3) * ops["Mx"] + 6 * ops["Ch"] + (2 * px + 3) * ops["update"]
+    n_bytes = (2 * x.numel() * x.element_size()
+               + 4 * (2 * (dt.numel() + A.numel() + B.numel() + C.numel() + h0.numel())
+                      + dy.numel() + dhT.numel()))
+    res = scan_bwd_report(
+        "ssd_scan_bwd", ("dx", "ddt", "dA", "dB", "dC", "dh0"),
+        lambda: ssd_scan_bwd(*args, dy, dhT),
+        lambda: ssd_scan_bwd_ref(*args, dy, dhT), leaves, outs, (dy, dhT),
+        n_bytes, n_ops, 3 if L >= 1024 else 10)
+    del leaves, outs
+    torch.cuda.empty_cache()
+    return {**res, "shape": [Bz, L, H, P, N], "x_dtype": xdt}
+
+
+def check_wkv6_bwd(B: int, L: int, H: int, D: int, dt: str) -> dict:
+    """wkv6_scan_bwd against wkv6_bwd_ref.  The bound: r, k, v, logw, u,
+    s0, dy and dsT read once, dr, dk, dv, dlogw, du and ds0 written once,
+    against the recurrence's multiply-adds a step and head (the state
+    recomputed, dlogw, dk, dr, dv and dS's update: 6 D^2) at split TF32."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.rwkv6_scan import wkv6_bwd_ref, wkv6_ref, wkv6_scan_bwd
+    rng = np.random.default_rng(L * 10 + H + 1)
+
+    def r(*shape, scale=1.0):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32) * scale
+                                ).to("cuda")
+    tdt = getattr(torch, dt)
+    rr, k, v = r(B, L, H, D).to(tdt), r(B, L, H, D, scale=0.3).to(tdt), r(B, L, H, D).to(tdt)
+    logw = -r(B, L, H, D, scale=0.5).abs() - 0.05
+    u, s0 = r(H, D, scale=0.2), r(B, H, D, D, scale=0.1)
+    dy, dsT = r(B, L, H, D), r(B, H, D, D)
+    args = (rr, k, v, logw, u, s0)
+    leaves = [t.clone().requires_grad_(True) for t in args]
+    outs = wkv6_ref(*leaves, chunk=32)
+    n_bytes = (6 * rr.numel() * rr.element_size()
+               + 4 * (3 * logw.numel() + 2 * u.numel() + 3 * s0.numel()))
+    res = scan_bwd_report(
+        "wkv6_scan_bwd", ("dr", "dk", "dv", "dlogw", "du", "ds0"),
+        lambda: wkv6_scan_bwd(*args, dy, dsT),
+        lambda: wkv6_bwd_ref(*args, dy, dsT), leaves, outs, (dy, dsT),
+        n_bytes, 3 * 2 * 6 * B * L * H * D * D, 3 if L >= 1024 else 10)
+    del leaves, outs
+    torch.cuda.empty_cache()
+    return {**res, "shape": [B, L, H, D], "rkv_dtype": dt}
+
+
 def phase_kernel_checks(ws_pages: int) -> dict:
     """Each kernel against its plain version; returns the main-path rows."""
     rows = {}
@@ -658,6 +789,19 @@ def phase_kernel_checks(ws_pages: int) -> dict:
                                  "inputs gave different bytes")
         if case == FLASH_BWD_CASES[0]:
             rows["flash_attention_bwd"] = res
+    for fn, cases, name in ((check_ssd_bwd, SSD_BWD_CASES, "ssd_scan_bwd"),
+                            (check_wkv6_bwd, WKV_BWD_CASES, "wkv6_scan_bwd")):
+        for case in cases:
+            res = fn(*case)
+            emit({"phase": "kernel_check", **res})
+            if not res["ok"]:
+                raise AssertionError(f"{name} {case}: errors {res['errors']} past "
+                                     f"{res['atols']}")
+            if not res["deterministic"]:
+                raise AssertionError(f"{name} {case}: two calls on the same inputs "
+                                     "gave different bytes")
+            if case == cases[0]:
+                rows[name] = res
     for fn, cases, name, row_case in (
             (check_decode, DECODE_CASES, "decode_attention", DECODE_CASES[3]),
             (check_ssd, SSD_CASES, "ssd_scan", SSD_CASES[3]),
@@ -1146,7 +1290,9 @@ DEVICE_KERNELS = {"flash_attention": ("flash_fwd",),
                   "flash_attention_bwd": ("flash_bwd",),
                   "decode_attention": ("decode_split", "decode_combine"),
                   "ssd_scan": ("ssd_chunks", "ssd_step"),
-                  "wkv6_scan": ("wkv6_chunks", "wkv6_steps")}
+                  "ssd_scan_bwd": ("ssd_bwd",),
+                  "wkv6_scan": ("wkv6_chunks", "wkv6_steps"),
+                  "wkv6_scan_bwd": ("wkv6_bwd",)}
 F32_KERNEL_ATOL = {"flash_attention": FLASH_ATOL["float32"],
                    "decode_attention": DECODE_ATOL["float32"], "ssd_scan": SSD_ATOL,
                    "wkv6_scan": 1.2e-5}
@@ -1474,7 +1620,8 @@ def run_decode_path(label: str, cfg, params, n_steps: int, t_start: float, *,
             "decode_attention": decode_per_step(cfg) * n_steps,
             "ssd_scan": mamba_layers(cfg) * (1 + n_steps + 1),    # prefill, steps, forward
             "wkv6_scan": rwkv_layers(cfg) * (1 + n_steps + 1),
-            "gather_pages": 0, "scatter_pages": 0, "flash_attention_bwd": 0}
+            "gather_pages": 0, "scatter_pages": 0, "flash_attention_bwd": 0,
+            "ssd_scan_bwd": 0, "wkv6_scan_bwd": 0}
     if launches != want:
         raise AssertionError(f"{label}: launches {launches}, want {want}")
     logits = run["logits"]                                     # (B, 1 + steps, vocab)
@@ -1631,6 +1778,15 @@ TRAIN_OPT = dict(lr=1e-3, warmup_steps=2, total_steps=TRAIN_STEPS)
 TRAIN_LOSS_RTOL = {"bfloat16": 2.0 ** -10, "float32": 1e-6}
 TRAIN_GRAD_ULPS = 16
 TRAIN_F32_GRAD_REL = 3e-5
+# zamba2-1.2b's float32 twin (4 layers) reads its loss within 8.8e-8 of
+# the plain step's but gradients within 2.6e-4 (embed/table; lm_head/w,
+# whose gradient sees only the forward, 5.2e-5) on the H100: with random
+# weights the family amplifies one rounding difference of its scans
+# (F32_ATOL's reason; a 1e-6 nudge of every SSD output moves float32
+# logits by up to 1e-3, tests/test_torch_hybrid.py), and the forward's
+# split-TF32 B6 differs from the plain scan by rounding.  Its gradients
+# are held to ten times that reading; the loss to TRAIN_LOSS_RTOL.
+TRAIN_HYBRID_F32_GRAD_REL = 3e-3
 # The restarted run's losses of steps 4-6 against the uninterrupted run's:
 # the same bytes go into the same deterministic arithmetic (no kernel of
 # the step uses atomics), so they should be equal; 1e-6 relative leaves
@@ -1674,11 +1830,11 @@ def disk_peak(path: str, out: dict, every_s: float = 0.25):
         out["disk_peak_gb"] = max(seen) / 1e9
 
 
-def grads_vs_plain(cfg, params, batch) -> dict:
+def grads_vs_plain(cfg, params, batch, *, remat: bool = False) -> dict:
     """One loss and gradient through the kernels and one through their
-    plain versions, on the same params and batch: the losses, their
-    difference, and each gradient leaf's largest difference over the
-    plain gradient's largest magnitude."""
+    plain versions, on the same params and batch (both with ``remat`` or
+    both without): the losses, their difference, and each gradient leaf's
+    largest difference over the plain gradient's largest magnitude."""
     import torch
     from repro_torch.launch import steps
     from repro_torch.training.optimizer import tree_leaves
@@ -1686,15 +1842,19 @@ def grads_vs_plain(cfg, params, batch) -> dict:
     for plain in (False, True):
         sync()
         t0 = time.perf_counter()
-        loss, grads = steps.loss_and_grads(cfg, params, batch, plain=plain)
+        loss, grads = steps.loss_and_grads(cfg, params, batch, remat=remat, plain=plain)
         sync()
         out["plain" if plain else "kernel"] = (float(loss), grads,
                                                  time.perf_counter() - t0)
     (loss, grads, ks), (ploss, pgrads, ps) = out["kernel"], out["plain"]
+    if not (math.isfinite(loss) and math.isfinite(ploss)):
+        raise AssertionError(f"train step: loss {loss}, plain loss {ploss}")
     rel, ulps = {}, {}
     for (path, g), (_, w) in zip(tree_leaves(grads), tree_leaves(pgrads)):
         if not bool(torch.isfinite(g).all()):
             raise AssertionError(f"train step: gradient {path} not finite")
+        if not bool(torch.isfinite(w).all()):
+            raise AssertionError(f"train step: plain gradient {path} not finite")
         w = w.float()
         m = float(w.abs().max())
         err = float((g.float() - w).abs().max())
@@ -1705,6 +1865,93 @@ def grads_vs_plain(cfg, params, batch) -> dict:
             "grad_rel_err": rel, "grad_err_bf16_ulps": ulps, "worst_leaf": worst,
             "worst_rel_err": rel[worst], "worst_ulps": max(ulps.values()),
             "kernel_s": ks, "plain_s": ps}
+
+
+def first_layers(cfg, params: dict, n: int):
+    """A dense, hybrid or RWKV config cut to its first ``n`` layers, and
+    views of ``params``' stacks for them (a hybrid's groups of
+    ``attn_every`` Mamba layers)."""
+    import dataclasses
+
+    from repro_torch.training import optimizer as opt_lib
+    key, m = (("groups", n // cfg.attn_every) if cfg.family == "hybrid"
+              else ("layers", n))
+    return (dataclasses.replace(cfg, n_layers=n),
+            {**params, key: opt_lib.tree_map(lambda t: t[:m], params[key])})
+
+
+def kernel_vs_plain(cfg, params, batch, n_f32: int, t_start: float, *,
+                    gate_bf16: bool, remat_bf16: bool = False,
+                    f32_grad_rel: float = TRAIN_F32_GRAD_REL,
+                    extra: dict | None = None) -> dict:
+    """A step's loss and gradients through the kernels against the plain
+    versions': in bfloat16 (gated by ``TRAIN_LOSS_RTOL`` and
+    ``TRAIN_GRAD_ULPS`` where ``gate_bf16``, else only finite) and in a
+    float32 twin of the first ``n_f32`` layers (always gated: the loss by
+    ``TRAIN_LOSS_RTOL``, each gradient leaf by ``f32_grad_rel``).  Emits the
+    ``kernel_vs_plain`` line (with ``extra``'s keys), with the bfloat16
+    step's peak device memory."""
+    import dataclasses
+
+    import torch
+    torch.cuda.reset_peak_memory_stats()
+    bf16 = grads_vs_plain(cfg, params, batch, remat=remat_bf16)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    cut, p32 = first_layers(cfg, params, n_f32)
+    cfg32 = dataclasses.replace(cut, dtype="float32")
+    f32 = grads_vs_plain(cfg32, float32_tree(p32), batch)
+    del p32
+    torch.cuda.empty_cache()
+    bounds = {"f32_loss_rel": TRAIN_LOSS_RTOL["float32"], "f32_grad_rel": f32_grad_rel}
+    if gate_bf16:
+        bounds.update(bf16_loss_rel=TRAIN_LOSS_RTOL["bfloat16"],
+                      bf16_grad_ulps=TRAIN_GRAD_ULPS)
+    emit({"phase": "train_path", "step": "kernel_vs_plain",
+          "t": time.perf_counter() - t_start, "function": cfg.name,
+          "n_layers": cfg.n_layers, **(extra or {}), "batch": [TRAIN_BATCH, TRAIN_SEQ],
+          "bounds": bounds, "bf16_remat": remat_bf16, "bf16_peak_gb": peak,
+          "bfloat16": bf16, "float32_first_layers": {"n_layers": n_f32, **f32}})
+    bad = []
+    if gate_bf16 and bf16["loss_rel_err"] > bounds["bf16_loss_rel"]:
+        bad.append(f"bf16 loss {bf16['loss_rel_err']}")
+    if gate_bf16 and bf16["worst_ulps"] > bounds["bf16_grad_ulps"]:
+        bad.append(f"bf16 grads {bf16['grad_err_bf16_ulps']}")
+    if f32["loss_rel_err"] > bounds["f32_loss_rel"]:
+        bad.append(f"f32 loss {f32['loss_rel_err']}")
+    if f32["worst_rel_err"] > bounds["f32_grad_rel"]:
+        bad.append(f"f32 grad {f32['worst_leaf']} {f32['worst_rel_err']}")
+    if bad:
+        raise AssertionError(f"{cfg.name} train step through the kernels vs plain: {bad}")
+    return {"bfloat16": bf16, "float32": f32}
+
+
+def counted_step(cfg, params, state, batch, opt, want: dict):
+    """One train step (``remat=False``) with the launches counted from 0:
+    exactly ``want`` ({kernel: launches}, every other kernel 0).  Emits the
+    ``one_step`` line; returns the step function and its result."""
+    import torch
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import steps
+    train_step = steps.build_train_step(cfg, opt, remat=False)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    sync()
+    t0 = time.perf_counter()
+    new_p, new_s, metrics = train_step(params, state, batch)
+    sync()
+    step_s = time.perf_counter() - t0
+    one_step = dict(LAUNCHES)
+    expected = {k: 0 for k in one_step}
+    expected.update(want)
+    emit({"phase": "train_path", "step": "one_step", "function": cfg.name,
+          "seconds": step_s, "loss": float(metrics["loss"]),
+          "grad_norm": float(metrics["grad_norm"]), "lr": float(metrics["lr"]),
+          "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "launches": one_step})
+    if not math.isfinite(float(metrics["loss"])):
+        raise AssertionError(f"{cfg.name} train step: loss {float(metrics['loss'])}")
+    if one_step != expected:
+        raise AssertionError(f"{cfg.name} train step launches {one_step}, want {expected}")
+    return train_step, new_p, new_s
 
 
 def phase_train_path(t_start: float) -> dict:
@@ -1727,7 +1974,7 @@ def phase_train_path(t_start: float) -> dict:
     import torch
     from repro_torch.configs import ARCHS
     from repro_torch.data import TokenDataset, synthesize_corpus
-    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels import LAUNCHES
     from repro_torch.launch import steps
     from repro_torch.training import (OptConfig, SimulatedPreemption, Trainer,
                                       TrainLoopConfig)
@@ -1747,56 +1994,16 @@ def phase_train_path(t_start: float) -> dict:
         init_s = time.perf_counter() - t0
         n_params = sum(t.numel() for _, t in tree_leaves(params))
         # (1) kernels against plain versions, bfloat16 and a float32 twin
-        bf16 = grads_vs_plain(cfg, params, batch)
-        cfg32 = dataclasses.replace(cfg, n_layers=TRAIN_F32_LAYERS, dtype="float32")
-        p32 = float32_tree({**params, "layers": opt_lib.tree_map(
-            lambda t: t[:TRAIN_F32_LAYERS], params["layers"])})
-        f32 = grads_vs_plain(cfg32, p32, batch)
-        del p32
-        torch.cuda.empty_cache()
-        bounds = {"bf16_loss_rel": TRAIN_LOSS_RTOL["bfloat16"],
-                  "bf16_grad_ulps": TRAIN_GRAD_ULPS,
-                  "f32_loss_rel": TRAIN_LOSS_RTOL["float32"],
-                  "f32_grad_rel": TRAIN_F32_GRAD_REL}
-        line = {"phase": "train_path", "step": "kernel_vs_plain",
-                "t": time.perf_counter() - t_start, "function": cfg.name,
-                "n_layers": cfg.n_layers, "params": n_params, "init_s": init_s,
-                "batch": [TRAIN_BATCH, TRAIN_SEQ], "bounds": bounds,
-                "bfloat16": {k: v for k, v in bf16.items()},
-                "float32_first_layers": {"n_layers": TRAIN_F32_LAYERS,
-                                         **{k: v for k, v in f32.items()}}}
-        emit(line)
-        bad = []
-        if bf16["loss_rel_err"] > bounds["bf16_loss_rel"]:
-            bad.append(f"bf16 loss {bf16['loss_rel_err']}")
-        if bf16["worst_ulps"] > bounds["bf16_grad_ulps"]:
-            bad.append(f"bf16 grads {bf16['grad_err_bf16_ulps']}")
-        if f32["loss_rel_err"] > bounds["f32_loss_rel"]:
-            bad.append(f"f32 loss {f32['loss_rel_err']}")
-        if f32["worst_rel_err"] > bounds["f32_grad_rel"]:
-            bad.append(f"f32 grad {f32['worst_leaf']} {f32['worst_rel_err']}")
-        if bad:
-            raise AssertionError(f"train step through the kernels vs plain: {bad}")
+        kernel_vs_plain(cfg, params, batch, TRAIN_F32_LAYERS, t_start, gate_bf16=True,
+                        extra={"params": n_params, "init_s": init_s})
 
         # (2) one counted step: B3 forward and backward once per layer
         opt = OptConfig(**TRAIN_OPT)
-        train_step = steps.build_train_step(cfg, opt, remat=False)
         state = opt_lib.init_state(params, opt)
-        reset_launches()
-        sync()
-        t0 = time.perf_counter()
-        new_p, new_s, metrics = train_step(params, state, batch)
-        sync()
-        step_s = time.perf_counter() - t0
-        one_step = dict(LAUNCHES)
-        want = {k: 0 for k in one_step}
-        want.update(flash_attention=cfg.n_layers, flash_attention_bwd=cfg.n_layers)
-        emit({"phase": "train_path", "step": "one_step", "seconds": step_s,
-              "loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]),
-              "lr": float(metrics["lr"]), "launches": one_step})
-        if one_step != want:
-            raise AssertionError(f"train step launches {one_step}, want {want}")
-        del new_p, new_s, metrics, state
+        train_step, new_p, new_s = counted_step(
+            cfg, params, state, batch, opt,
+            {"flash_attention": cfg.n_layers, "flash_attention_bwd": cfg.n_layers})
+        del new_p, new_s, state
         torch.cuda.empty_cache()
 
         # (3) preempt, restart by REAP restore, and an uninterrupted run
@@ -1896,6 +2103,108 @@ def phase_train_path(t_start: float) -> dict:
         return launches
     finally:
         shutil.rmtree(work, ignore_errors=True)
+
+
+# The scan families' train paths (zamba2-1.2b at full depth; rwkv6-7b cut
+# to RWKV_TRAIN_LAYERS of its 32 layers), each with its float32 twin's
+# first layers: (function, depth cut, twin layers, the twin's gradient
+# bound).
+# AdamW at rwkv6-7b's full depth holds bf16 params and gradients and f32
+# moments, 12 bytes a parameter: 7.53 B x 12 B = 90 GB, over the card's
+# 80 GB before any activation; 8 layers hold 2.28 B parameters (27 GB).
+# Their bfloat16 steps against the plain steps run with remat=True on both
+# sides: the plain chunked scans' autograd graphs (about 8.6 GB a layer of
+# wkv6_ref's (B, Lc, Lc, H, D) decays; zamba2's SSD and mha_ref ones
+# over 38 layers) would not fit beside the model without it.
+RWKV_TRAIN_LAYERS, SCAN_TRAIN_TIMED = 8, 3
+SCAN_TRAIN = (("zamba2-1.2b", None, 4, TRAIN_HYBRID_F32_GRAD_REL),
+              ("rwkv6-7b", RWKV_TRAIN_LAYERS, 2, TRAIN_F32_GRAD_REL))
+REDUCED["rwkv6-7b/train"] = {
+    "n_layers": [32, RWKV_TRAIN_LAYERS],
+    "why": "AdamW state at 32 layers (90 GB at 12 bytes a parameter) is over "
+           "the card's 80 GB"}
+
+
+def scan_train_launches(cfg) -> dict:
+    """B3, B5 and B6 launches of one remat=False train step: a forward and
+    a backward per Mamba2 layer and per application of zamba2's shared
+    attention block, per RWKV6 layer."""
+    if cfg.family == "hybrid":
+        n_attn = cfg.n_layers // cfg.attn_every
+        return {"ssd_scan": cfg.n_layers, "ssd_scan_bwd": cfg.n_layers,
+                "flash_attention": n_attn, "flash_attention_bwd": n_attn}
+    return {"wkv6_scan": cfg.n_layers, "wkv6_scan_bwd": cfg.n_layers}
+
+
+def phase_scan_train_paths(t_start: float) -> dict:
+    """zamba2-1.2b and rwkv6-7b training at full width through
+    ``launch.steps`` (bf16, AdamW, 4 x 1024 tokens of seed ``SEED``):
+    (a) a float32 twin's step through the kernels against the plain one,
+    gated as olmo-1b's (zamba2's gradients by ``TRAIN_HYBRID_F32_GRAD_REL``);
+    (b) the bfloat16 step against the plain one, finite, its errors
+    printed (random weights amplify one rounding flip in these families,
+    ``F32_ATOL``); (c) one counted step, exactly a B6 (B5)
+    forward and backward per layer and B3's per application of the shared
+    block, nothing else; (d) the s per step of ``SCAN_TRAIN_TIMED`` more
+    steps, then one traced step.  Returns launches summed over (c) and
+    (d)'s timed steps (reset before each path's counted step, read after
+    its timed steps)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.launch import steps
+    from repro_torch.training import OptConfig
+    from repro_torch.training import optimizer as opt_lib
+    from repro_torch.training.optimizer import tree_leaves
+    total: dict[str, int] = {}
+    opt = OptConfig(**TRAIN_OPT)
+    for function, depth, n_f32, f32_grad_rel in SCAN_TRAIN:
+        cfg = ARCHS[function]
+        if depth is not None:
+            cfg = dataclasses.replace(cfg, n_layers=depth)
+        batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in steps.make_batch(
+            cfg, TRAIN_SEQ, TRAIN_BATCH, "train", SEED).items()}
+        t0 = time.perf_counter()
+        params = steps.init_params(cfg, SEED, DEVICE)
+        sync()
+        init_s = time.perf_counter() - t0
+        n_params = sum(t.numel() for _, t in tree_leaves(params))
+        kernel_vs_plain(cfg, params, batch, n_f32, t_start, gate_bf16=False,
+                        remat_bf16=True, f32_grad_rel=f32_grad_rel,
+                        extra={"params": n_params, "init_s": init_s,
+                               "reduced": REDUCED.get(f"{function}/train")})
+        torch.cuda.empty_cache()
+        per_step = scan_train_launches(cfg)
+        state = opt_lib.init_state(params, opt)
+        train_step, params, state = counted_step(cfg, params, state, batch, opt, per_step)
+        times = []
+        for _ in range(SCAN_TRAIN_TIMED):
+            sync()
+            t0 = time.perf_counter()
+            params, state, metrics = train_step(params, state, batch)
+            sync()
+            times.append(time.perf_counter() - t0)
+        launches = dict(LAUNCHES)
+        want = {k: 0 for k in launches}
+        want.update({k: n * (1 + SCAN_TRAIN_TIMED) for k, n in per_step.items()})
+        losses_finite = math.isfinite(float(metrics["loss"]))
+        profile = profile_forward(
+            lambda: train_step(params, state, batch), iters=2,
+            kernels={k: DEVICE_KERNELS[k] for k in per_step})
+        emit({"phase": "train_path", "step": "train_step_profile", "function": function,
+              "t": time.perf_counter() - t_start, "s_per_step": sum(times) / len(times),
+              "step_s": times, "loss": float(metrics["loss"]), "launches": launches,
+              **profile})
+        if launches != want or not losses_finite:
+            raise AssertionError(f"{function} train steps: launches {launches}, want "
+                                 f"{want}; loss {float(metrics['loss'])}")
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+        del params, state, metrics, train_step
+        torch.cuda.empty_cache()
+    return total
 
 
 # -- phase 6: MoE invocation ---------------------------------------------------
@@ -2118,6 +2427,10 @@ def kernel_table(rows: dict, launches: dict) -> list[dict]:
                              tpu + "decode_attention/kernel.py:87"),
         "ssd_scan": (src + "mamba2_scan.cu", tpu + "mamba2_scan/kernel.py:71"),
         "wkv6_scan": (src + "rwkv6_scan.cu", tpu + "rwkv6_scan/kernel.py:80"),
+        # no TPU counterpart either: the JAX model differentiates its plain
+        # chunked scans
+        "ssd_scan_bwd": (src + "mamba2_scan.cu", "src/repro/models/mamba2.py:84"),
+        "wkv6_scan_bwd": (src + "rwkv6_scan.cu", "src/repro/models/rwkv6.py:106"),
     }
     out = []
     for name, (source, replaces) in meta.items():
@@ -2188,9 +2501,11 @@ def main() -> int:
     emit({"phase": "launch_counts", "path": "decode", "kernel_launches": decode_launches})
     train_launches = phase_train_path(t_start)
     emit({"phase": "launch_counts", "path": "train", "kernel_launches": train_launches})
+    scan_launches = phase_scan_train_paths(t_start)
+    emit({"phase": "launch_counts", "path": "train_scans", "kernel_launches": scan_launches})
     launches = {k: n + fleet_launches.get(k, 0) + moe_launches.get(k, 0)
                 + decode_launches.get(k, 0) + train_launches.get(k, 0)
-                for k, n in launches.items()}
+                + scan_launches.get(k, 0) for k, n in launches.items()}
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "flash_library_kernels": rows["flash_attention"]["library_kernels"]})
     print(env["nvidia_smi"], flush=True)

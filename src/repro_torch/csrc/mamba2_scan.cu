@@ -67,6 +67,7 @@
 #include <type_traits>
 
 #include "cp_async.cuh"
+#include "scan_bwd.cuh"
 #include "tf32_mma.cuh"
 
 namespace {
@@ -459,6 +460,219 @@ cudaError_t launch_step(const Args& a, int Bz, int P, int N, cudaStream_t st) {
   return cudaGetLastError();
 }
 
+
+// -- backward ---------------------------------------------------------------
+//
+// ssd_bwd_chunks: the gradients of (y, hT), by the recurrence walked
+// backward in float32 on the CUDA cores -- a first, simple design; B6's
+// forward has no backward in the JAX package, whose model differentiates
+// its plain chunked scan (models/mamba2.py: ssd_chunked).  One CTA of 256
+// threads per (b, head); thread (n, q) holds row n of the state and of dh,
+// the gradient into it, columns q E .. q E + E - 1 (E = N P / 256), in
+// registers (scan_bwd.cuh).  Phase 1 walks the steps forward from h0 and
+// writes the state before each chunk of kLc steps to a scratch (bnd).
+// Phase 2 walks the chunks backward: it recomputes the chunk's states from
+// its first into a second scratch (hist; each thread reads back only what
+// it wrote, so no barrier), then walks the chunk's steps backward with
+// a_t = exp(A dt_t):
+//   dC_t[n] (this head's part) = sum_p dy_t[p] h_t[n, p]
+//   dh += C_t (x) dy_t
+//   dla_t = a_t <dh, h_{t-1}>,  ddt_t = A dla_t + <dh, B_t (x) x_t>
+//   dB_t[n] (this head's part) = dt_t sum_p dh[n, p] x_t[p]
+//   dx_t[p] = dt_t sum_n dh[n, p] B_t[n],  dA (this (b, head)'s part) += dt_t dla_t
+//   dh *= a_t
+// and writes dh0 at the end.  dx and the scalars sum over rows: shuffles
+// within the warp, then the warps' partials in shared memory, added in
+// warp order once a chunk.  dA, dB and dC sum over b and t, or over the
+// heads: the CTA writes its parts and ssd_bwd_sum adds them in index
+// order.  No atomics: two calls give the same bytes.  No exponent is
+// positive: only a_t <= 1 multiplies.
+//
+// Bound: the chunked form's products at split TF32 on the tensor cores
+// and the bytes of x, dy, dx and the rest are about equal (PERF.md); this
+// design moves the recomputed states through L2 and spends several
+// CUDA-core instructions a state element and step.
+
+struct BwdArgs {
+  const void* x;
+  const float* dt;
+  const float* A;
+  const float* B;
+  const float* C;
+  const float* h0;
+  const float* dy;       // (Bz, L, H, P), contiguous
+  const float* dhT;      // (Bz, H, N, P), or null: zeros
+  void* dx;              // (Bz, L, H, P), x's dtype, contiguous
+  float* ddt;            // (Bz, L, H)
+  float* dA_part;        // (H, Bz, L)
+  float* dB_part;        // (Bz, H, L, N)
+  float* dC_part;        // (Bz, H, L, N)
+  float* dh0;            // (Bz, H, N, P)
+  float* bnd;            // (Bz H, n_chunks, N P) scratch
+  float* hist;           // (Bz H, kLc, N P) scratch
+  int Bz, L, H;
+  long long x_sb, x_sl, x_sh;
+};
+
+__device__ __forceinline__ void from_f(float& d, float v) { d = v; }
+__device__ __forceinline__ void from_f(bf16& d, float v) { d = __float2bfloat16(v); }
+
+template <typename TX, int P, int N>
+__global__ void __launch_bounds__(scan_bwd::kThreads, (N * P <= 4096) ? 2 : 1)
+ssd_bwd_chunks(BwdArgs a) {
+  using scan_bwd::col_sums;
+  using scan_bwd::load_row;
+  using scan_bwd::row_sum;
+  using scan_bwd::store_row;
+  using scan_bwd::warp_sum;
+  constexpr int kC = scan_bwd::kLc, kT = scan_bwd::kThreads, kW = scan_bwd::kWarps;
+  constexpr int kTPR = kT / N;              // threads a row
+  constexpr int E = P / kTPR;               // columns a thread
+  constexpr int kNP = N * P;
+  static_assert(kTPR * N == kT && E * kTPR == P && kTPR <= 32, "layout");
+  __shared__ float sx[kC][P], sdy[kC][P];
+  __shared__ float sB[kC][N], sC[kC][N];
+  __shared__ float sdt[kC], sdec[kC];
+  __shared__ float part_dx[kW][kC][P];
+  __shared__ float part_s[kW][kC][2];
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int L = a.L, H = a.H;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int n = tid / kTPR, q = tid % kTPR, col0 = q * E;
+  const int own = n * P + col0;             // this thread's offset in a state
+  const float A = a.A[h];
+  const long long bh = static_cast<long long>(b) * H + h;
+  const TX* xb = static_cast<const TX*>(a.x) + b * a.x_sb + h * a.x_sh;
+  const int n_chunks = (L + kC - 1) / kC;
+  float* bnd = a.bnd + bh * n_chunks * kNP;
+  float* hist = a.hist + bh * kC * kNP;
+
+  // steps t0 .. t0 + n_s - 1 into shared memory: x, B, dt and the decay,
+  // and with_dy dy and C
+  auto stage = [&](int t0, int n_s, bool with_dy) {
+    for (int e = tid; e < n_s * P; e += kT) {
+      const int s = e / P, p = e % P;
+      const long long t = t0 + s;
+      sx[s][p] = to_f(xb[t * a.x_sl + p]);
+      if (with_dy) sdy[s][p] = a.dy[((b * static_cast<long long>(L) + t) * H + h) * P + p];
+    }
+    for (int e = tid; e < n_s * N; e += kT) {
+      const int s = e / N, m = e % N;
+      const long long row = (static_cast<long long>(b) * L + t0 + s) * N + m;
+      sB[s][m] = a.B[row];
+      if (with_dy) sC[s][m] = a.C[row];
+    }
+    if (tid < n_s) {
+      const float d = a.dt[(static_cast<long long>(b) * L + t0 + tid) * H + h];
+      sdt[tid] = d;
+      sdec[tid] = expf(A * d);
+    }
+  };
+  auto step = [&](float (&hs)[E], int s) {
+    const float dec = sdec[s], w = sdt[s] * sB[s][n];
+#pragma unroll
+    for (int j = 0; j < E; ++j) hs[j] = fmaf(dec, hs[j], w * sx[s][col0 + j]);
+  };
+
+  // phase 1: the state before each chunk
+  {
+    float hs[E];
+    load_row<E>(hs, a.h0 + bh * kNP + own);
+    for (int c = 0; c < n_chunks; ++c) {
+      const int t0 = c * kC, n_s = min(kC, L - t0);
+      store_row<E>(bnd + static_cast<long long>(c) * kNP + own, hs);
+      __syncthreads();                      // the previous chunk's stage is read
+      stage(t0, n_s, false);
+      __syncthreads();
+      for (int s = 0; s < n_s; ++s) step(hs, s);
+    }
+  }
+
+  // phase 2: the chunks backward
+  float g[E];
+  if (a.dhT != nullptr) {
+    load_row<E>(g, a.dhT + bh * kNP + own);
+  } else {
+#pragma unroll
+    for (int j = 0; j < E; ++j) g[j] = 0.f;
+  }
+  float* dCp = a.dC_part + bh * L * N;
+  float* dBp = a.dB_part + bh * L * N;
+  float* dAp = a.dA_part + (static_cast<long long>(h) * a.Bz + b) * L;
+  TX* dxb = static_cast<TX*>(a.dx);
+  for (int c = n_chunks - 1; c >= 0; --c) {
+    const int t0 = c * kC, n_s = min(kC, L - t0);
+    __syncthreads();                        // the previous chunk's stage and partials are read
+    stage(t0, n_s, true);
+    __syncthreads();
+    // hist[s] = h_{t0 + s - 1}; hn ends as h_{t0 + n_s - 1}
+    float hn[E];
+    load_row<E>(hn, bnd + static_cast<long long>(c) * kNP + own);
+    for (int s = 0; s < n_s; ++s) {
+      store_row<E>(hist + s * kNP + own, hn);
+      step(hn, s);
+    }
+    for (int s = n_s - 1; s >= 0; --s) {
+      const int t = t0 + s;
+      float hp[E], v[E];
+      load_row<E>(hp, hist + s * kNP + own);
+      const float Cn = sC[s][n], Bn = sB[s][n], dec = sdec[s];
+      float s1 = 0.f, s2 = 0.f, s3 = 0.f;
+#pragma unroll
+      for (int j = 0; j < E; ++j) {
+        const float dyj = sdy[s][col0 + j];
+        s1 = fmaf(dyj, hn[j], s1);
+        g[j] = fmaf(Cn, dyj, g[j]);
+        s2 = fmaf(g[j], hp[j], s2);
+        s3 = fmaf(g[j], sx[s][col0 + j], s3);
+        v[j] = g[j] * Bn;
+        g[j] *= dec;
+        hn[j] = hp[j];
+      }
+      float s4 = s3 * Bn;
+      s1 = row_sum<kTPR>(s1);
+      s3 = row_sum<kTPR>(s3);
+      s2 = warp_sum(s2);
+      s4 = warp_sum(s4);
+      if (q == 0) {
+        dCp[static_cast<long long>(t) * N + n] = s1;
+        dBp[static_cast<long long>(t) * N + n] = sdt[s] * s3;
+      }
+      if (lane == 0) {
+        part_s[warp][s][0] = s2;
+        part_s[warp][s][1] = s4;
+      }
+      col_sums<E, kTPR>(v, lane, &part_dx[warp][s][0], col0);
+    }
+    __syncthreads();                        // the chunk's partials are written
+    for (int e = tid; e < n_s * P; e += kT) {
+      const int s = e / P, p = e % P;
+      float sum = 0.f;
+#pragma unroll
+      for (int w = 0; w < kW; ++w) sum += part_dx[w][s][p];
+      from_f(dxb[((static_cast<long long>(b) * L + t0 + s) * H + h) * P + p], sdt[s] * sum);
+    }
+    if (tid < n_s) {
+      float s2 = 0.f, s4 = 0.f;
+#pragma unroll
+      for (int w = 0; w < kW; ++w) {
+        s2 += part_s[w][tid][0];
+        s4 += part_s[w][tid][1];
+      }
+      const float dla = sdec[tid] * s2;
+      a.ddt[(static_cast<long long>(b) * L + t0 + tid) * H + h] = fmaf(A, dla, s4);
+      dAp[t0 + tid] = sdt[tid] * dla;
+    }
+  }
+  store_row<E>(a.dh0 + bh * kNP + own, g);
+}
+
+__global__ void ssd_bwd_sum(const float* in, float* out, long long outer, int K,
+                            long long inner) {
+  scan_bwd::sum_mid(in, out, outer, K, inner);
+}
+
 }  // namespace
 
 extern "C" {
@@ -491,6 +705,47 @@ int ssd_scan(const void* x, const void* dt, const void* A, const void* B,
     ssd_chunks<TX, kP, kN><<<dim3(H, Bz), kThreads, Layout<TX, kP, kN>::kBytes, st>>>(a);
     return cudaGetLastError();
   }));
+}
+
+
+// The backward of ssd_scan: x as ssd_scan takes it; dy (Bz, L, H, P) and
+// dhT (Bz, H, N, P, or null for zeros) float32 and contiguous.  Out: dx
+// (Bz, L, H, P) in x's dtype, ddt (Bz, L, H), dA (H,), dB and dC (Bz, L,
+// N), dh0 (Bz, H, N, P), float32 and contiguous but dx.  dA_part (H, Bz,
+// L), dB_part and dC_part (Bz, H, L, N), bnd (Bz H, ceil(L / 8), N P) and
+// hist (Bz H, 8, N P) are float32 scratch the caller allocates.
+int ssd_scan_bwd(const void* x, const void* dt, const void* A, const void* B,
+                 const void* C, const void* h0, const void* dy, const void* dhT,
+                 void* dx, void* ddt, void* dA, void* dB, void* dC, void* dh0,
+                 void* dA_part, void* dB_part, void* dC_part, void* bnd, void* hist,
+                 int Bz, int L, int H, int P, int N, long long x_sb, long long x_sl,
+                 long long x_sh, int x_dtype, void* stream) {
+  if (Bz <= 0 || H <= 0) return static_cast<int>(cudaSuccess);
+  if (L <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  BwdArgs a{x, static_cast<const float*>(dt), static_cast<const float*>(A),
+            static_cast<const float*>(B), static_cast<const float*>(C),
+            static_cast<const float*>(h0), static_cast<const float*>(dy),
+            static_cast<const float*>(dhT), dx, static_cast<float*>(ddt),
+            static_cast<float*>(dA_part), static_cast<float*>(dB_part),
+            static_cast<float*>(dC_part), static_cast<float*>(dh0),
+            static_cast<float*>(bnd), static_cast<float*>(hist), Bz, L, H,
+            x_sb, x_sl, x_sh};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = with_chunks(x_dtype, P, N, [&](auto tx, auto p, auto n) {
+    using TX = decltype(tx);
+    constexpr int kP = decltype(p)::value, kN = decltype(n)::value;
+    ssd_bwd_chunks<TX, kP, kN><<<dim3(H, Bz), scan_bwd::kThreads, 0, st>>>(a);
+    return cudaGetLastError();
+  });
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long LN = static_cast<long long>(L) * N;
+  err = scan_bwd::launch_sum(ssd_bwd_sum, a.dB_part, static_cast<float*>(dB), Bz, H, LN, st);
+  if (err == cudaSuccess)
+    err = scan_bwd::launch_sum(ssd_bwd_sum, a.dC_part, static_cast<float*>(dC), Bz, H, LN, st);
+  if (err == cudaSuccess)
+    err = scan_bwd::launch_sum(ssd_bwd_sum, a.dA_part, static_cast<float*>(dA), H,
+                               Bz * L, 1, st);
+  return static_cast<int>(err);
 }
 
 }  // extern "C"

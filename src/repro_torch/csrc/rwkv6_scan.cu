@@ -81,6 +81,7 @@
 #include <type_traits>
 
 #include "cp_async.cuh"
+#include "scan_bwd.cuh"
 #include "tf32_mma.cuh"
 
 namespace {
@@ -712,6 +713,214 @@ cudaError_t with_kernels(int rkv_dtype, int D, F&& f) {
   return cudaErrorInvalidValue;
 }
 
+
+// -- backward ---------------------------------------------------------------
+//
+// wkv6_bwd_chunks: the gradients of (y, sT), by the recurrence walked
+// backward in float32 on the CUDA cores -- a first, simple design; B5's
+// forward has no backward in the JAX package, whose model differentiates
+// its plain chunked scan (models/rwkv6.py: wkv6_chunked).  One CTA of 256
+// threads per (b, head); thread (i, q) holds row i of the state and of dS,
+// the gradient into it, value channels q E .. q E + E - 1 (E = D^2 / 256),
+// in registers (scan_bwd.cuh).  Phase 1 walks the steps forward from s0
+// and writes the state before each chunk of kLc steps to a scratch (bnd).
+// Phase 2 walks the chunks backward: it recomputes the chunk's states from
+// its first into a second scratch (hist; each thread reads back only what
+// it wrote), then walks the chunk's steps backward with w_t = exp(logw_t):
+//   dlogw_t[i] = w_t[i] sum_j dS[i, j] S_{t-1}[i, j]
+//   dk_t[i] = sum_j dS[i, j] v_t[j] + u[i] r_t[i] <dy_t, v_t>
+//   dr_t[i] = sum_j S_{t-1}[i, j] dy_t[j] + u[i] k_t[i] <dy_t, v_t>
+//   dv_t[j] = sum_i dS[i, j] k_t[i] + <r_t, u o k_t> dy_t[j]
+//   du (this (b, head)'s part) += r_t o k_t <dy_t, v_t>
+//   dS = w_t o dS + r_t (x) dy_t
+// and writes ds0 at the end.  dv sums over rows: shuffles within the warp,
+// then the warps' partials in shared memory, added in warp order once a
+// chunk; du sums over b: wkv6_bwd_sum adds the CTAs' parts in index
+// order.  No atomics: two calls give the same bytes.  No exponent is
+// positive: only w_t <= 1 multiplies, for any logw <= 0.
+//
+// Bound: bytes (r, k, v and their gradients, logw, dlogw and dy, PERF.md);
+// this design moves the recomputed states through L2 and spends several
+// CUDA-core instructions a state element and step.
+
+struct BwdArgs {
+  const void* r;
+  const void* k;
+  const void* v;
+  const float* logw;
+  const float* u;
+  const float* s0;
+  const float* dy;       // (B, L, H, D), contiguous
+  const float* dsT;      // (B, H, D, D), or null: zeros
+  void* dr;              // (B, L, H, D), r's dtype, contiguous; dk and dv alike
+  void* dk;
+  void* dv;
+  float* dlogw;          // (B, L, H, D)
+  float* du_part;        // (B, H, D)
+  float* ds0;            // (B, H, D, D)
+  float* bnd;            // (B H, n_chunks, D D) scratch
+  float* hist;           // (B H, kLc, D D) scratch
+  int L, H;
+  // element strides (batch, step, head) of r, k, v, logw; D is contiguous
+  long long s[4][3];
+};
+
+__device__ __forceinline__ void from_f(float& d, float x) { d = x; }
+__device__ __forceinline__ void from_f(bf16& d, float x) { d = __float2bfloat16(x); }
+
+template <typename T, int D>
+__global__ void __launch_bounds__(scan_bwd::kThreads, 2)
+wkv6_bwd_chunks(BwdArgs a) {
+  using scan_bwd::col_sums;
+  using scan_bwd::load_row;
+  using scan_bwd::row_sum;
+  using scan_bwd::store_row;
+  constexpr int kC = scan_bwd::kLc, kNT = scan_bwd::kThreads, kW = scan_bwd::kWarps;
+  constexpr int kTPR = kNT / D;             // threads a row
+  constexpr int E = D / kTPR;               // value channels a thread
+  constexpr int kDD = D * D;
+  static_assert(kTPR * D == kNT && E * kTPR == D && kTPR <= 32, "layout");
+  __shared__ float sr[kC][D], sk[kC][D], sv[kC][D], sw[kC][D], sdy[kC][D];
+  __shared__ float sdyv[kC], sruk[kC], su[D];
+  __shared__ float part_dv[kW][kC][D];
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int L = a.L, H = a.H;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int i = tid / kTPR, q = tid % kTPR, col0 = q * E;
+  const int own = i * D + col0;             // this thread's offset in a state
+  const long long bh = static_cast<long long>(b) * H + h;
+  const T* rb = static_cast<const T*>(a.r) + b * a.s[0][0] + h * a.s[0][2];
+  const T* kb = static_cast<const T*>(a.k) + b * a.s[1][0] + h * a.s[1][2];
+  const T* vb = static_cast<const T*>(a.v) + b * a.s[2][0] + h * a.s[2][2];
+  const float* wb = a.logw + b * a.s[3][0] + h * a.s[3][2];
+  const int n_chunks = (L + kC - 1) / kC;
+  float* bnd = a.bnd + bh * n_chunks * kDD;
+  float* hist = a.hist + bh * kC * kDD;
+  if (tid < D) su[tid] = a.u[h * D + tid];
+
+  // steps t0 .. t0 + n_s - 1 into shared memory: k, v and the decay, and
+  // with_dy r and dy
+  auto stage = [&](int t0, int n_s, bool with_dy) {
+    for (int e = tid; e < n_s * D; e += kNT) {
+      const int s = e / D, c = e % D;
+      const long long t = t0 + s;
+      sk[s][c] = to_f(kb[t * a.s[1][1] + c]);
+      sv[s][c] = to_f(vb[t * a.s[2][1] + c]);
+      sw[s][c] = expf(wb[t * a.s[3][1] + c]);
+      if (with_dy) {
+        sr[s][c] = to_f(rb[t * a.s[0][1] + c]);
+        sdy[s][c] = a.dy[((b * static_cast<long long>(L) + t) * H + h) * D + c];
+      }
+    }
+  };
+  auto step = [&](float (&st)[E], int s) {
+    const float wi = sw[s][i], ki = sk[s][i];
+#pragma unroll
+    for (int j = 0; j < E; ++j) st[j] = fmaf(wi, st[j], ki * sv[s][col0 + j]);
+  };
+
+  // phase 1: the state before each chunk
+  {
+    float st[E];
+    load_row<E>(st, a.s0 + bh * kDD + own);
+    for (int c = 0; c < n_chunks; ++c) {
+      const int t0 = c * kC, n_s = min(kC, L - t0);
+      store_row<E>(bnd + static_cast<long long>(c) * kDD + own, st);
+      __syncthreads();                      // the previous chunk's stage is read
+      stage(t0, n_s, false);
+      __syncthreads();
+      for (int s = 0; s < n_s; ++s) step(st, s);
+    }
+  }
+
+  // phase 2: the chunks backward
+  float g[E];
+  if (a.dsT != nullptr) {
+    load_row<E>(g, a.dsT + bh * kDD + own);
+  } else {
+#pragma unroll
+    for (int j = 0; j < E; ++j) g[j] = 0.f;
+  }
+  const float ui = su[i];
+  float du = 0.f;
+  T* drb = static_cast<T*>(a.dr);
+  T* dkb = static_cast<T*>(a.dk);
+  T* dvb = static_cast<T*>(a.dv);
+  for (int c = n_chunks - 1; c >= 0; --c) {
+    const int t0 = c * kC, n_s = min(kC, L - t0);
+    __syncthreads();                        // the previous chunk's stage and partials are read
+    stage(t0, n_s, true);
+    __syncthreads();
+    // the step's scalars <dy_t, v_t> and <r_t, u o k_t>, a warp a step
+    for (int s = warp; s < n_s; s += kW) {
+      float dyv = 0.f, ruk = 0.f;
+      for (int c2 = lane; c2 < D; c2 += 32) {
+        dyv = fmaf(sdy[s][c2], sv[s][c2], dyv);
+        ruk = fmaf(sr[s][c2] * su[c2], sk[s][c2], ruk);
+      }
+      dyv = scan_bwd::warp_sum(dyv);
+      ruk = scan_bwd::warp_sum(ruk);
+      if (lane == 0) {
+        sdyv[s] = dyv;
+        sruk[s] = ruk;
+      }
+    }
+    // hist[s] = S_{t0 + s - 1}
+    {
+      float st[E];
+      load_row<E>(st, bnd + static_cast<long long>(c) * kDD + own);
+      for (int s = 0; s < n_s; ++s) {
+        store_row<E>(hist + s * kDD + own, st);
+        if (s + 1 < n_s) step(st, s);
+      }
+    }
+    __syncthreads();                        // the scalars are written
+    for (int s = n_s - 1; s >= 0; --s) {
+      const long long row = ((static_cast<long long>(b) * L + t0 + s) * H + h) * D;
+      float sp[E], dvp[E];
+      load_row<E>(sp, hist + s * kDD + own);
+      const float ri = sr[s][i], ki = sk[s][i], wi = sw[s][i], dyv = sdyv[s];
+      float a1 = 0.f, a2 = 0.f, a3 = 0.f;
+#pragma unroll
+      for (int j = 0; j < E; ++j) {
+        const float dyj = sdy[s][col0 + j];
+        a1 = fmaf(g[j], sp[j], a1);
+        a2 = fmaf(g[j], sv[s][col0 + j], a2);
+        a3 = fmaf(sp[j], dyj, a3);
+        dvp[j] = g[j] * ki;
+        g[j] = fmaf(wi, g[j], ri * dyj);
+      }
+      a1 = row_sum<kTPR>(a1);
+      a2 = row_sum<kTPR>(a2);
+      a3 = row_sum<kTPR>(a3);
+      if (q == 0) {
+        a.dlogw[row + i] = wi * a1;
+        from_f(dkb[row + i], fmaf(ui * ri, dyv, a2));
+        from_f(drb[row + i], fmaf(ui * ki, dyv, a3));
+        du = fmaf(ri * ki, dyv, du);
+      }
+      col_sums<E, kTPR>(dvp, lane, &part_dv[warp][s][0], col0);
+    }
+    __syncthreads();                        // the chunk's partials are written
+    for (int e = tid; e < n_s * D; e += kNT) {
+      const int s = e / D, j = e % D;
+      float sum = 0.f;
+#pragma unroll
+      for (int w = 0; w < kW; ++w) sum += part_dv[w][s][j];
+      from_f(dvb[((static_cast<long long>(b) * L + t0 + s) * H + h) * D + j],
+             fmaf(sruk[s], sdy[s][j], sum));
+    }
+  }
+  store_row<E>(a.ds0 + bh * kDD + own, g);
+  if (q == 0) a.du_part[bh * D + i] = du;
+}
+
+__global__ void wkv6_bwd_sum(const float* in, float* out, long long outer, int K,
+                             long long inner) {
+  scan_bwd::sum_mid(in, out, outer, K, inner);
+}
+
 }  // namespace
 
 extern "C" {
@@ -746,6 +955,43 @@ int wkv6_scan(const void* r, const void* k, const void* v, const void* logw,
     wkv6_chunks<T, kD><<<dim3(H, B), kThreads, Layout<T, kD>::kBytes, st>>>(a);
     return cudaGetLastError();
   }));
+}
+
+
+// The backward of wkv6_scan: r, k, v, logw as wkv6_scan takes them (and
+// their strides); dy (B, L, H, D) and dsT (B, H, D, D, or null for zeros)
+// float32 and contiguous.  Out, contiguous: dr, dk, dv (B, L, H, D) in
+// r's dtype, dlogw (B, L, H, D), du (H, D) and ds0 (B, H, D, D) float32.
+// du_part (B, H, D), bnd (B H, ceil(L / 8), D D) and hist (B H, 8, D D)
+// are float32 scratch the caller allocates.
+int wkv6_scan_bwd(const void* r, const void* k, const void* v, const void* logw,
+                  const void* u, const void* s0, const void* dy, const void* dsT,
+                  void* dr, void* dk, void* dv, void* dlogw, void* du, void* ds0,
+                  void* du_part, void* bnd, void* hist, int B, int L, int H, int D,
+                  long long r_sb, long long r_sl, long long r_sh, long long k_sb,
+                  long long k_sl, long long k_sh, long long v_sb, long long v_sl,
+                  long long v_sh, long long w_sb, long long w_sl, long long w_sh,
+                  int rkv_dtype, void* stream) {
+  if (B <= 0 || H <= 0) return static_cast<int>(cudaSuccess);
+  if (L <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  BwdArgs a{r, k, v, static_cast<const float*>(logw), static_cast<const float*>(u),
+            static_cast<const float*>(s0), static_cast<const float*>(dy),
+            static_cast<const float*>(dsT), dr, dk, dv, static_cast<float*>(dlogw),
+            static_cast<float*>(du_part), static_cast<float*>(ds0),
+            static_cast<float*>(bnd), static_cast<float*>(hist), L, H,
+            {{r_sb, r_sl, r_sh}, {k_sb, k_sl, k_sh}, {v_sb, v_sl, v_sh},
+             {w_sb, w_sl, w_sh}}};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = with_kernels(rkv_dtype, D, [&](auto tx, auto d) {
+    using T = decltype(tx);
+    constexpr int kD = decltype(d)::value;
+    wkv6_bwd_chunks<T, kD><<<dim3(H, B), scan_bwd::kThreads, 0, st>>>(a);
+    return cudaGetLastError();
+  });
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(scan_bwd::launch_sum(wkv6_bwd_sum, a.du_part,
+                                               static_cast<float*>(du), 1, B,
+                                               static_cast<long long>(H) * D, st));
 }
 
 }  // extern "C"

@@ -39,8 +39,10 @@ def wkv6_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         y = torch.einsum("blhi,bhij->blhj", rk * torch.exp(d_prev), s)
         # intra-chunk, strictly causal: A[t,s] = sum_i r_t exp(d_{t-1}-d_s) k_s
         diff = d_prev[:, :, None] - cum[:, None]       # (B, Lc, Lc, H, D)
-        dec = torch.where(mask[None, :, :, None, None], torch.exp(diff),
-                          torch.zeros((), device=r.device))
+        # on and above the diagonal diff >= 0 can overflow exp, and a
+        # where() after it gives 0 * inf = NaN in the backward: mask to
+        # -inf first
+        dec = torch.exp(diff.masked_fill(~mask[None, :, :, None, None], float("-inf")))
         A = torch.einsum("bthi,btshi,bshi->btsh", rk, dec, kk)
         y = y + torch.einsum("btsh,bshj->bthj", A, vk)
         # current token bonus
@@ -51,3 +53,63 @@ def wkv6_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         s = s * torch.exp(last)[..., None] + torch.einsum("bshi,bshj->bhij", kdec, vk)
         ys.append(y)
     return torch.cat(ys, dim=1)[:, :L], s
+
+
+def wkv6_bwd_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 logw: torch.Tensor, u: torch.Tensor, s0: torch.Tensor,
+                 dy: torch.Tensor, dsT: torch.Tensor | None = None, *,
+                 chunk: int = 16):
+    """The gradients of ``wkv6_ref``'s (y, sT) by an explicit reverse pass:
+    the oracle of the backward kernel.  Shapes as ``wkv6_ref``; dy: (B, L,
+    H, D), dsT: (B, H, D, D) or None (zeros).  Returns (dr, dk, dv, dlogw,
+    du, ds0), all float32.
+
+    The state before each chunk of ``chunk`` steps is computed forward;
+    then the chunks are walked backward, each chunk's states recomputed
+    from its first, with dS the gradient into S_t (w_t = exp(logw_t)):
+
+        dlogw_t = sum_j dS o w_t o S_{t-1}
+        dk_t = dS v_t + u o r_t <dy_t, v_t>
+        dv_t = dS^T k_t + <r_t, u o k_t> dy_t
+        dr_t = S_{t-1} dy_t + u o k_t <dy_t, v_t>
+        du += sum_b r_t o k_t <dy_t, v_t>
+        dS = w_t o dS + r_t (x) dy_t
+
+    and the last dS is ds0.  Only decays w_t <= 1 are multiplied: the
+    chunk form of dlogw, a reverse cumulative sum of terms that cancel,
+    loses float32 digits where this does not."""
+    B, L, H, D = r.shape
+    rf, kf, vf, dyf = (t.float() for t in (r, k, v, dy))
+    w = torch.exp(logw.float())
+    uf = u.float()
+    dev = r.device
+
+    def step(s, t):
+        return w[:, t, :, :, None] * s + kf[:, t, :, :, None] * vf[:, t, :, None, :]
+    starts, s = [], s0.float()
+    for c0 in range(0, L, chunk):
+        starts.append(s)
+        for t in range(c0, min(c0 + chunk, L)):
+            s = step(s, t)
+    dr, dk, dv, dlogw = (torch.zeros((B, L, H, D), dtype=torch.float32, device=dev)
+                         for _ in range(4))
+    du = torch.zeros((H, D), dtype=torch.float32, device=dev)
+    dS = (torch.zeros((B, H, D, D), dtype=torch.float32, device=dev)
+          if dsT is None else dsT.float().clone())
+    for ci in reversed(range(len(starts))):
+        c0 = ci * chunk
+        states = [starts[ci]]                   # states[s] = S_{c0 + s - 1}
+        for t in range(c0, min(c0 + chunk, L) - 1):
+            states.append(step(states[-1], t))
+        for t in reversed(range(c0, min(c0 + chunk, L))):
+            sp = states[t - c0]
+            rt, kt, vt, dyt, wt = rf[:, t], kf[:, t], vf[:, t], dyf[:, t], w[:, t]
+            dyv = (dyt * vt).sum(-1, keepdim=True)             # (B, H, 1)
+            ruk = (rt * uf * kt).sum(-1, keepdim=True)
+            dlogw[:, t] = wt * (dS * sp).sum(-1)
+            dk[:, t] = torch.einsum("bhij,bhj->bhi", dS, vt) + uf * rt * dyv
+            dv[:, t] = torch.einsum("bhij,bhi->bhj", dS, kt) + ruk * dyt
+            dr[:, t] = torch.einsum("bhij,bhj->bhi", sp, dyt) + uf * kt * dyv
+            du += (rt * kt * dyv).sum(0)
+            dS = wt[..., None] * dS + rt[..., None] * dyt[..., None, :]
+    return dr, dk, dv, dlogw, du, dS

@@ -4,8 +4,9 @@ the same scan with one step for decode.
 The JAX package's ``repro.models.mamba2``, in PyTorch: projections split
 into z/x/B/C/dt weights, a depthwise causal conv over x only, and the SSD
 scan.  On a CUDA tensor the scan runs the hand-written kernel
-(``kernels.mamba2_scan``); on a CPU tensor, and with ``plain=True``, it
-runs the kernel's plain version, the same chunked form.  A state (``ssm``
+(``kernels.mamba2_scan``), and under autograd its backward kernel; on a
+CPU tensor, and with ``plain=True``, it runs the kernel's plain version,
+the same chunked form, which autograd differentiates.  A state (``ssm``
 and ``conv``) is updated in place, where the JAX package returns a new
 one.
 """

@@ -11,8 +11,8 @@ slice of the cache, where the JAX package returns a new one.  The shift
 states are bfloat16 in the cache spec, so a float32 run rounds them as the
 JAX package does.  ``loss`` is the dense family's chunked next-token CE;
 ``remat=True`` recomputes each layer in the backward.  On the card the
-loss raises until the WKV6 scan has a backward kernel (ROADMAP A9.1): its
-wrapper refuses an autograd graph.
+WKV6 scan's gradients are a hand-written backward kernel
+(``wkv6_scan_bwd``).
 """
 from __future__ import annotations
 

@@ -9,8 +9,8 @@ per application of the shared block: one block's weights, 19 caches at
 full width.  Prefill and decode update the cache in place.  ``loss`` is
 the dense family's chunked next-token CE; ``remat=True`` recomputes each
 group (its Mamba layers and the shared block) in the backward.  On the
-card the loss raises until the SSD scan has a backward kernel (ROADMAP
-A9.1): its wrapper refuses an autograd graph.
+card the SSD scan's and the attention's gradients are hand-written
+backward kernels (``ssd_scan_bwd``, ``flash_attention_bwd``).
 """
 from __future__ import annotations
 
