@@ -15,9 +15,10 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    one library call's (a yardstick the port never calls) and its bound;
    B3's backward at olmo-1b's training shape (bf16 and f32), pixtral's
    GQA shape and seamless's bidirectional one, and B6's and B5's
-   backward at zamba2-1.2b's and rwkv6-7b's training shapes and two
-   small float32 shapes each, every backward also called twice and held
-   bitwise equal;
+   backward at zamba2-1.2b's and rwkv6-7b's training shapes (each split
+   by the device kernels it launches) and two small float32 shapes each,
+   and both at ROADMAP C4's strong decays, every backward also called
+   twice and held bitwise equal;
 4. main path: full-width olmo-1b served through ``Orchestrator`` and
    ``Router`` -- register, a record request, scale to zero, a single cold
    start, a group restore of two, warm requests -- with the logits held
@@ -57,7 +58,8 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    profile, checkpoint bytes, stage, write and restore seconds and the
    checkpoints' peak disk; then zamba2-1.2b (full depth) and rwkv6-7b
    (8 of its 32 layers) train at full width: a float32 twin's step held
-   to the plain versions', the bf16 step finite, one step with exactly a
+   to the plain versions', the bf16 step finite (zamba2's within its
+   gate, and again with each half of B6 plain), one step with exactly a
    B6 (B5) forward and backward per layer and B3's per shared-block
    application, the s per step and a traced step;
 9. the launch counts of each path (counts set to 0 just before it, read
@@ -163,14 +165,26 @@ WKV_BWD_CASES = [                    # (B, L, H, D, r/k/v dtype)
     (1, 77, 2, 32, "float32"),
 ]
 # The scans' backward kernels against their oracles (``ssd_scan_bwd_ref``,
-# ``wkv6_bwd_ref``) on the same inputs, a nonzero initial state and final
-# state cotangent.  Both walk the recurrence a step at a time in float32
-# and differ in the order of their sums (over a row, the warps, b, t and
-# the heads): a float32 gradient within the forward kernel's bound
-# relative to its largest magnitude (B6's SSD_ATOL, B5's 1.2e-5 of
-# F32_KERNEL_ATOL); a bfloat16 dx, dr, dk or dv is rounded once from
-# float32, so KERNEL_ULPS ulps at its largest magnitude.
+# ``wkv6_bwd_ref``, which walk the recurrence a step at a time in float32)
+# on the same inputs, a nonzero initial state and final state cotangent.
+# The kernels are chunk-parallel: their products run at split TF32 (22
+# bits of each operand) and sum in other orders (over a chunk, the
+# chunks, b and the heads): a float32 gradient within the forward
+# kernel's bound relative to its largest magnitude (B6's SSD_ATOL, B5's
+# 1.2e-5 of F32_KERNEL_ATOL); a bfloat16 dx, dr, dk or dv is rounded once
+# from float32, so KERNEL_ULPS ulps at its largest magnitude.  The same
+# gates hold at ROADMAP C4's strong decays (SCAN_BWD_STRONG), where the
+# gradients must also be finite.
 SCAN_BWD_REL = {"ssd_scan_bwd": SSD_ATOL, "wkv6_scan_bwd": 1.2e-5}
+# ROADMAP C4's inputs (tests/test_torch_scan_bwd.py): A = -100 over 64
+# steps (A dt sums to about -500 a chunk), and log decays in [-30, -5]
+SCAN_BWD_STRONG = {"ssd_scan_bwd": (1, 64, 2, 64, 16), "wkv6_scan_bwd": (1, 64, 2, 64)}
+# the scans' backward kernels' device kernels, by the part each computes
+SCAN_BWD_PARTS = {
+    "ssd_scan_bwd": {"state_walk": r"ssd_bwd_walk<.*false>", "grad_walk": r"ssd_bwd_walk<.*true>",
+                     "chunk_grads": r"ssd_bwd_chunk<", "ordered_sums": r"ssd_bwd_sum"},
+    "wkv6_scan_bwd": {"state_walk": r"wkv6_bwd_walk<.*false>", "grad_walk": r"wkv6_bwd_walk<.*true>",
+                      "chunk_grads": r"wkv6_bwd_chunk<", "ordered_sums": r"wkv6_bwd_sum"}}
 
 
 def emit(obj: dict) -> None:
@@ -518,6 +532,29 @@ def device_profile(fn, calls: int = 10, attempts: int = 3) -> tuple[list[str], f
     raise RuntimeError(f"the profiler caught no device span in {attempts} traces")
 
 
+def device_ms_by_part(fn, parts: dict, calls: int = 3) -> dict:
+    """Device milliseconds a call of ``fn`` by part: ``parts`` maps a part
+    to a regular expression its device kernels' names match; a kernel
+    matched by none goes to "other".  One trace of ``calls`` calls."""
+    import re
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {part: 0.0 for part in parts}
+    for e in device_spans(prof):
+        part = next((p for p, rx in parts.items() if re.search(rx, e.name)), "other")
+        out[part] = out.get(part, 0.0) + (e.time_range.end - e.time_range.start) / 1e3 / calls
+    if not any(out.values()):
+        raise RuntimeError("the profiler caught no device span")
+    return out
+
+
 def check_decode(B: int, S: int, H: int, KV: int, D: int, dtype: str,
                  kv_len: int | None) -> dict:
     """gqa_decode against its plain version (and SDPA as the yardstick)."""
@@ -683,7 +720,49 @@ def scan_bwd_report(name: str, names: tuple, kernel, oracle, leaves, outs, cotan
             "ok": all(errs[n] <= atols[n] for n in errs), "deterministic": same_bytes,
             "kernel_ms": ms["kernel"], "plain_ms": ms["plain"],
             "kernel_device_ms": device_profile(kernel, calls=3)[1],
+            "kernel_device_ms_by_part": device_ms_by_part(kernel, SCAN_BWD_PARTS[name]),
             "library_ms": None, "bound_ms": b, "bound_by": by}
+
+
+def check_scan_bwd_strong_decay() -> dict:
+    """Both scans' backward kernels at ROADMAP C4's strong decays
+    (``SCAN_BWD_STRONG``), float32: finite, within ``SCAN_BWD_REL`` of
+    their oracles, two calls bitwise equal."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.mamba2_scan import ssd_scan_bwd, ssd_scan_bwd_ref
+    from repro_torch.kernels.rwkv6_scan import wkv6_bwd_ref, wkv6_scan_bwd
+    rng = np.random.default_rng(64)
+
+    def r(*shape, scale=1.0):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32) * scale
+                                ).to("cuda")
+    Bz, L, H, P, N = SCAN_BWD_STRONG["ssd_scan_bwd"]
+    ssd_args = (r(Bz, L, H, P), r(Bz, L, H, scale=0.1).abs(),
+                torch.full((H,), -100.0, device="cuda"), r(Bz, L, N, scale=0.3),
+                r(Bz, L, N, scale=0.3), r(Bz, H, N, P, scale=0.1), r(Bz, L, H, P),
+                r(Bz, H, N, P))
+    B, L, H, D = SCAN_BWD_STRONG["wkv6_scan_bwd"]
+    logw = torch.from_numpy(rng.uniform(-30, -5, (B, L, H, D)).astype(np.float32)).to("cuda")
+    wkv_args = (r(B, L, H, D), r(B, L, H, D, scale=0.3), r(B, L, H, D), logw,
+                r(H, D, scale=0.2), r(B, H, D, D, scale=0.1), r(B, L, H, D), r(B, H, D, D))
+    res = {"phase": "kernel_check", "kernel": "scan_bwd_strong_decay", "ok": True}
+    for name, kernel, oracle, args, names in (
+            ("ssd_scan_bwd", ssd_scan_bwd, ssd_scan_bwd_ref, ssd_args,
+             ("dx", "ddt", "dA", "dB", "dC", "dh0")),
+            ("wkv6_scan_bwd", wkv6_scan_bwd, wkv6_bwd_ref, wkv_args,
+             ("dr", "dk", "dv", "dlogw", "du", "ds0"))):
+        got, again, want = kernel(*args), kernel(*args), oracle(*args)
+        torch.cuda.synchronize()
+        rel = {n: float((g - w).abs().max() / w.abs().max()) for n, g, w in zip(names, got, want)}
+        finite = all(bool(torch.isfinite(g).all()) for g in got)
+        same = all(torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+                   for a, b in zip(got, again))
+        ok = finite and same and max(rel.values()) <= SCAN_BWD_REL[name]
+        res[name] = {"shape": list(args[0].shape), "rel_err": rel, "finite": finite,
+                     "deterministic": same, "bound": SCAN_BWD_REL[name], "ok": ok}
+        res["ok"] = res["ok"] and ok
+    return res
 
 
 def check_ssd_bwd(Bz: int, L: int, H: int, P: int, N: int, xdt: str) -> dict:
@@ -802,6 +881,10 @@ def phase_kernel_checks(ws_pages: int) -> dict:
                                      "gave different bytes")
             if case == cases[0]:
                 rows[name] = res
+    res = check_scan_bwd_strong_decay()
+    emit(res)
+    if not res["ok"]:
+        raise AssertionError(f"the scans' backwards at strong decay: {res}")
     for fn, cases, name, row_case in (
             (check_decode, DECODE_CASES, "decode_attention", DECODE_CASES[3]),
             (check_ssd, SSD_CASES, "ssd_scan", SSD_CASES[3]),
@@ -1787,6 +1870,21 @@ TRAIN_F32_GRAD_REL = 3e-5
 # split-TF32 B6 differs from the plain scan by rounding.  Its gradients
 # are held to ten times that reading; the loss to TRAIN_LOSS_RTOL.
 TRAIN_HYBRID_F32_GRAD_REL = 3e-3
+# zamba2-1.2b's bfloat16 step against the plain one (remat on both sides):
+# the loss read 6.44e-4 relative and the worst leaf 312.5 bf16 ulps
+# (groups/mamba/block/wdt) on the H100 (run 1, PR 21).  Run again with
+# one half of B6 plain at a time: B6's forward kernel with the plain
+# backward read the same (6.44e-4, 312.5 ulps; worst relative leaf
+# groups/mamba/block/wo), the plain forward with B6's backward kernel
+# 1.54e-4 and 161 ulps (its loss moved by B3 alone).  So the forward
+# kernel's rounding, which random weights amplify through 38 layers (as
+# F32_ATOL's reason), moves these gradients; the backward kernel does not
+# add to it.  A leaf 312 ulps off is already off by more than its largest
+# magnitude, so a bound on the bf16 step can only catch a gross fault: the
+# loss within TRAIN_LOSS_RTOL and each leaf within about three times the
+# largest of the three readings.  The float32 twin
+# (TRAIN_HYBRID_F32_GRAD_REL) is the check of the backward's arithmetic.
+TRAIN_HYBRID_BF16_GRAD_ULPS = 1024
 # The restarted run's losses of steps 4-6 against the uninterrupted run's:
 # the same bytes go into the same deterministic arithmetic (no kernel of
 # the step uses atomics), so they should be equal; 1e-6 relative leaves
@@ -1830,23 +1928,12 @@ def disk_peak(path: str, out: dict, every_s: float = 0.25):
         out["disk_peak_gb"] = max(seen) / 1e9
 
 
-def grads_vs_plain(cfg, params, batch, *, remat: bool = False) -> dict:
-    """One loss and gradient through the kernels and one through their
-    plain versions, on the same params and batch (both with ``remat`` or
-    both without): the losses, their difference, and each gradient leaf's
-    largest difference over the plain gradient's largest magnitude."""
+def grad_errors(loss: float, grads, ploss: float, pgrads) -> dict:
+    """A step's loss and gradients against the plain step's: the losses,
+    their difference, and each gradient leaf's largest difference over the
+    plain gradient's largest magnitude (and in bf16 ulps of it)."""
     import torch
-    from repro_torch.launch import steps
     from repro_torch.training.optimizer import tree_leaves
-    out = {}
-    for plain in (False, True):
-        sync()
-        t0 = time.perf_counter()
-        loss, grads = steps.loss_and_grads(cfg, params, batch, remat=remat, plain=plain)
-        sync()
-        out["plain" if plain else "kernel"] = (float(loss), grads,
-                                                 time.perf_counter() - t0)
-    (loss, grads, ks), (ploss, pgrads, ps) = out["kernel"], out["plain"]
     if not (math.isfinite(loss) and math.isfinite(ploss)):
         raise AssertionError(f"train step: loss {loss}, plain loss {ploss}")
     rel, ulps = {}, {}
@@ -1861,10 +1948,81 @@ def grads_vs_plain(cfg, params, batch, *, remat: bool = False) -> dict:
         rel[path] = err / m if m else err
         ulps[path] = err / bf16_ulp(w) if m else err
     worst = max(rel, key=rel.get)
+    worst_u = max(ulps, key=ulps.get)
     return {"loss": loss, "plain_loss": ploss, "loss_rel_err": abs(loss - ploss) / abs(ploss),
             "grad_rel_err": rel, "grad_err_bf16_ulps": ulps, "worst_leaf": worst,
-            "worst_rel_err": rel[worst], "worst_ulps": max(ulps.values()),
-            "kernel_s": ks, "plain_s": ps}
+            "worst_rel_err": rel[worst], "worst_ulps": ulps[worst_u], "worst_ulps_leaf": worst_u}
+
+
+def grads_vs_plain(cfg, params, batch, *, remat: bool = False,
+                   variants: dict | None = None) -> dict:
+    """One loss and gradient through the kernels and one through their
+    plain versions, on the same params and batch (both with ``remat`` or
+    both without), compared by ``grad_errors``; then the kernel step again
+    under each of ``variants`` ({name: a context manager factory}), each
+    held to the same plain step (under ``"variants"``)."""
+    from repro_torch.launch import steps
+
+    def step(plain: bool):
+        sync()
+        t0 = time.perf_counter()
+        loss, grads = steps.loss_and_grads(cfg, params, batch, remat=remat, plain=plain)
+        sync()
+        return float(loss), grads, time.perf_counter() - t0
+    ploss, pgrads, ps = step(True)
+    loss, grads, ks = step(False)
+    res = {**grad_errors(loss, grads, ploss, pgrads), "kernel_s": ks, "plain_s": ps}
+    del grads
+    for name, make in (variants or {}).items():
+        with make():
+            vloss, vgrads, vs = step(False)
+        res.setdefault("variants", {})[name] = {
+            k: v for k, v in grad_errors(vloss, vgrads, ploss, pgrads).items()
+            if k not in ("grad_rel_err", "grad_err_bf16_ulps")} | {"kernel_s": vs}
+        del vgrads
+    return res
+
+
+@contextlib.contextmanager
+def ssd_halves(kernel_forward: bool):
+    """``models.mamba2``'s scan with one half of B6 on the card and the
+    other plain: B6's forward kernel with autograd of the plain scan as
+    its backward (``kernel_forward``), or the plain scan's forward with
+    the backward kernel.  Shows which kernel moves a bfloat16 step's
+    gradients."""
+    import torch
+    from repro_torch.kernels.mamba2_scan import ops, ssd_scan_ref
+    from repro_torch.models import mamba2
+
+    class Half(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, chunk, *args):
+            ctx.chunk = chunk
+            ctx.save_for_backward(*args)
+            return ops._forward(*args) if kernel_forward else ssd_scan_ref(*args, chunk=chunk)
+
+        @staticmethod
+        def backward(ctx, dy, dhT):
+            args = ctx.saved_tensors
+            need = ctx.needs_input_grad[1:]
+            if kernel_forward:
+                leaves = [t.detach().requires_grad_(n) for t, n in zip(args, need)]
+                with torch.enable_grad():
+                    outs = ssd_scan_ref(*leaves, chunk=ctx.chunk)
+                wanted = [t for t in leaves if t.requires_grad]
+                got = iter(torch.autograd.grad(outs, wanted, (dy, dhT)))
+                return (None, *(next(got) if n else None for n in need))
+            grads = ops.ssd_scan_bwd(*args, dy.float(), dhT)
+            return (None, *(g.to(t.dtype) if n else None for g, t, n in zip(grads, args, need)))
+
+    def scan(x, dt, A, B, C, h0, *, chunk: int = 128):
+        return Half.apply(chunk, x, dt, A, B, C, h0)
+    old = mamba2.ssd_scan
+    mamba2.ssd_scan = scan
+    try:
+        yield
+    finally:
+        mamba2.ssd_scan = old
 
 
 def first_layers(cfg, params: dict, n: int):
@@ -1883,19 +2041,21 @@ def first_layers(cfg, params: dict, n: int):
 def kernel_vs_plain(cfg, params, batch, n_f32: int, t_start: float, *,
                     gate_bf16: bool, remat_bf16: bool = False,
                     f32_grad_rel: float = TRAIN_F32_GRAD_REL,
-                    extra: dict | None = None) -> dict:
+                    bf16_grad_ulps: float = TRAIN_GRAD_ULPS,
+                    extra: dict | None = None, variants: dict | None = None) -> dict:
     """A step's loss and gradients through the kernels against the plain
     versions': in bfloat16 (gated by ``TRAIN_LOSS_RTOL`` and
-    ``TRAIN_GRAD_ULPS`` where ``gate_bf16``, else only finite) and in a
+    ``bf16_grad_ulps`` where ``gate_bf16``, else only finite) and in a
     float32 twin of the first ``n_f32`` layers (always gated: the loss by
     ``TRAIN_LOSS_RTOL``, each gradient leaf by ``f32_grad_rel``).  Emits the
     ``kernel_vs_plain`` line (with ``extra``'s keys), with the bfloat16
-    step's peak device memory."""
+    step's peak device memory; ``variants`` go to the bfloat16 step
+    (``grads_vs_plain``)."""
     import dataclasses
 
     import torch
     torch.cuda.reset_peak_memory_stats()
-    bf16 = grads_vs_plain(cfg, params, batch, remat=remat_bf16)
+    bf16 = grads_vs_plain(cfg, params, batch, remat=remat_bf16, variants=variants)
     peak = torch.cuda.max_memory_allocated() / 1e9
     cut, p32 = first_layers(cfg, params, n_f32)
     cfg32 = dataclasses.replace(cut, dtype="float32")
@@ -1905,7 +2065,7 @@ def kernel_vs_plain(cfg, params, batch, n_f32: int, t_start: float, *,
     bounds = {"f32_loss_rel": TRAIN_LOSS_RTOL["float32"], "f32_grad_rel": f32_grad_rel}
     if gate_bf16:
         bounds.update(bf16_loss_rel=TRAIN_LOSS_RTOL["bfloat16"],
-                      bf16_grad_ulps=TRAIN_GRAD_ULPS)
+                      bf16_grad_ulps=bf16_grad_ulps)
     emit({"phase": "train_path", "step": "kernel_vs_plain",
           "t": time.perf_counter() - t_start, "function": cfg.name,
           "n_layers": cfg.n_layers, **(extra or {}), "batch": [TRAIN_BATCH, TRAIN_SEQ],
@@ -2108,7 +2268,7 @@ def phase_train_path(t_start: float) -> dict:
 # The scan families' train paths (zamba2-1.2b at full depth; rwkv6-7b cut
 # to RWKV_TRAIN_LAYERS of its 32 layers), each with its float32 twin's
 # first layers: (function, depth cut, twin layers, the twin's gradient
-# bound).
+# bound, the bf16 step's gradient bound in ulps or None for ungated).
 # AdamW at rwkv6-7b's full depth holds bf16 params and gradients and f32
 # moments, 12 bytes a parameter: 7.53 B x 12 B = 90 GB, over the card's
 # 80 GB before any activation; 8 layers hold 2.28 B parameters (27 GB).
@@ -2117,8 +2277,8 @@ def phase_train_path(t_start: float) -> dict:
 # wkv6_ref's (B, Lc, Lc, H, D) decays; zamba2's SSD and mha_ref ones
 # over 38 layers) would not fit beside the model without it.
 RWKV_TRAIN_LAYERS, SCAN_TRAIN_TIMED = 8, 3
-SCAN_TRAIN = (("zamba2-1.2b", None, 4, TRAIN_HYBRID_F32_GRAD_REL),
-              ("rwkv6-7b", RWKV_TRAIN_LAYERS, 2, TRAIN_F32_GRAD_REL))
+SCAN_TRAIN = (("zamba2-1.2b", None, 4, TRAIN_HYBRID_F32_GRAD_REL, TRAIN_HYBRID_BF16_GRAD_ULPS),
+              ("rwkv6-7b", RWKV_TRAIN_LAYERS, 2, TRAIN_F32_GRAD_REL, None))
 REDUCED["rwkv6-7b/train"] = {
     "n_layers": [32, RWKV_TRAIN_LAYERS],
     "why": "AdamW state at 32 layers (90 GB at 12 bytes a parameter) is over "
@@ -2143,7 +2303,8 @@ def phase_scan_train_paths(t_start: float) -> dict:
     gated as olmo-1b's (zamba2's gradients by ``TRAIN_HYBRID_F32_GRAD_REL``);
     (b) the bfloat16 step against the plain one, finite, its errors
     printed (random weights amplify one rounding flip in these families,
-    ``F32_ATOL``); (c) one counted step, exactly a B6 (B5)
+    ``F32_ATOL``), zamba2's gated by ``TRAIN_HYBRID_BF16_GRAD_ULPS`` and
+    also taken with one half of B6 plain at a time; (c) one counted step, exactly a B6 (B5)
     forward and backward per layer and B3's per application of the shared
     block, nothing else; (d) the s per step of ``SCAN_TRAIN_TIMED`` more
     steps, then one traced step.  Returns launches summed over (c) and
@@ -2160,7 +2321,7 @@ def phase_scan_train_paths(t_start: float) -> dict:
     from repro_torch.training.optimizer import tree_leaves
     total: dict[str, int] = {}
     opt = OptConfig(**TRAIN_OPT)
-    for function, depth, n_f32, f32_grad_rel in SCAN_TRAIN:
+    for function, depth, n_f32, f32_grad_rel, bf16_grad_ulps in SCAN_TRAIN:
         cfg = ARCHS[function]
         if depth is not None:
             cfg = dataclasses.replace(cfg, n_layers=depth)
@@ -2171,10 +2332,18 @@ def phase_scan_train_paths(t_start: float) -> dict:
         sync()
         init_s = time.perf_counter() - t0
         n_params = sum(t.numel() for _, t in tree_leaves(params))
-        kernel_vs_plain(cfg, params, batch, n_f32, t_start, gate_bf16=False,
+        # zamba2's bf16 step also with one half of B6 plain at a time, to
+        # show which kernel moves its gradients
+        variants = ({"b6_forward_kernel_plain_backward": lambda: ssd_halves(True),
+                     "plain_forward_b6_backward_kernel": lambda: ssd_halves(False)}
+                    if cfg.family == "hybrid" else None)
+        kernel_vs_plain(cfg, params, batch, n_f32, t_start,
+                        gate_bf16=bf16_grad_ulps is not None,
+                        bf16_grad_ulps=bf16_grad_ulps or TRAIN_GRAD_ULPS,
                         remat_bf16=True, f32_grad_rel=f32_grad_rel,
                         extra={"params": n_params, "init_s": init_s,
-                               "reduced": REDUCED.get(f"{function}/train")})
+                               "reduced": REDUCED.get(f"{function}/train")},
+                        variants=variants)
         torch.cuda.empty_cache()
         per_step = scan_train_launches(cfg)
         state = opt_lib.init_state(params, opt)

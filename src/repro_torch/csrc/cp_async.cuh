@@ -32,4 +32,26 @@ __device__ __forceinline__ void wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
+// Hopper's bulk copy shared -> global, issued by one thread: bytes a
+// multiple of 16, both addresses 16-byte aligned.  The CTA's writes to
+// src are made visible to the copy by fence_async() in each writing
+// thread, then a barrier; the issuing thread waits with
+// bulk_wait_read() before src is written again, and with bulk_wait()
+// before the kernel ends.
+__device__ __forceinline__ void fence_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void bulk_store(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst),
+               "r"(smem_addr(src)), "r"(bytes)
+               : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
 }  // namespace cp_async

@@ -716,204 +716,659 @@ cudaError_t with_kernels(int rkv_dtype, int D, F&& f) {
 
 // -- backward ---------------------------------------------------------------
 //
-// wkv6_bwd_chunks: the gradients of (y, sT), by the recurrence walked
-// backward in float32 on the CUDA cores -- a first, simple design; B5's
-// forward has no backward in the JAX package, whose model differentiates
-// its plain chunked scan (models/rwkv6.py: wkv6_chunked).  One CTA of 256
-// threads per (b, head); thread (i, q) holds row i of the state and of dS,
-// the gradient into it, value channels q E .. q E + E - 1 (E = D^2 / 256),
-// in registers (scan_bwd.cuh).  Phase 1 walks the steps forward from s0
-// and writes the state before each chunk of kLc steps to a scratch (bnd).
-// Phase 2 walks the chunks backward: it recomputes the chunk's states from
-// its first into a second scratch (hist; each thread reads back only what
-// it wrote), then walks the chunk's steps backward with w_t = exp(logw_t):
-//   dlogw_t[i] = w_t[i] sum_j dS[i, j] S_{t-1}[i, j]
-//   dk_t[i] = sum_j dS[i, j] v_t[j] + u[i] r_t[i] <dy_t, v_t>
-//   dr_t[i] = sum_j S_{t-1}[i, j] dy_t[j] + u[i] k_t[i] <dy_t, v_t>
-//   dv_t[j] = sum_i dS[i, j] k_t[i] + <r_t, u o k_t> dy_t[j]
-//   du (this (b, head)'s part) += r_t o k_t <dy_t, v_t>
-//   dS = w_t o dS + r_t (x) dy_t
-// and writes ds0 at the end.  dv sums over rows: shuffles within the warp,
-// then the warps' partials in shared memory, added in warp order once a
-// chunk; du sums over b: wkv6_bwd_sum adds the CTAs' parts in index
-// order.  No atomics: two calls give the same bytes.  No exponent is
-// positive: only w_t <= 1 multiplies, for any logw <= 0.
+// The gradients of (y, sT), chunk-parallel; B5's forward has no backward
+// in the JAX package, whose model differentiates its plain chunked scan
+// (models/rwkv6.py: wkv6_chunked).  Chunks of kBT = 32 steps; three stages
+// (ref.wkv6_chunked_bwd_ref is the same arithmetic in plain torch), with
+// the key channel i, p_t = sum_{m<t} logw_m and q_s = sum_{m>s} logw_m
+// (direct sums over the chunk, both <= 0):
+// (a) wkv6_bwd_walk<.., false>: one CTA per (b, head) walks the chunks
+//     forward from s0 and writes the state before each chunk to sc:
+//       S <- diag(exp(d_last)) S + (k o exp(q))^T v
+// (b) wkv6_bwd_walk<.., true>: the same backward from dsT, writing dS_out,
+//     the gradient into the state after each chunk, to dsc, and ds0:
+//       dS <- diag(exp(d_last)) dS + (r o exp(p))^T dy
+//     Each is a (D x 32) by (32 x D) product into mma accumulators a chunk
+//     (split TF32), the rows' weights walked per channel: 32 serial steps
+//     of a chunk, not 1024 of a step; the next chunk loads while one is
+//     read.
+// (c) wkv6_bwd_chunk: one CTA per (chunk, head, b) computes every gradient
+//     of its chunk from (S_in, dS_out).  With Pi[t,s] = prod_{s<m<t} w_m
+//     (a running product of decays <= 1), dA[t,s] = dy_t . v_s and
+//     A[t,s] = sum_i r_t k_s Pi[t,s]:
+//       dr_t = exp(p_t) S_in dy_t + sum_{s<t} dA[t,s] k_s Pi + u k_t dA[t,t]
+//       dk_s = exp(q_s) dS_out v_s + sum_{t>s} dA[t,s] r_t Pi + u r_s dA[s,s]
+//       dv_s = sum_{t>s} A[t,s] dy_t + <r_s, u o k_s> dy_s + (k_s o exp(q_s)) dS_out
+//       du (this CTA's part) = sum_t r_t o k_t dA[t,t]
+//       dlogw_tau = sum_{t > tau > s} r_t k_s Pi[t,s] dA[t,s]
+//                   + sum_{t > tau} r_t exp(p_t) (S_in dy_t)
+//                   + exp(d_last) <S_in, dS_out>_j + sum_{s < tau} k_s exp(q_s) (dS_out v_s)
+//     dlogw is a sum of the terms over the strict rectangle, prefixes and
+//     suffixes, never a difference of reverse cumulative sums (of r o dr
+//     and k o dk) that cancel.  dA, S_in dy, dS_out v and (k o exp(q))
+//     dS_out are products of tiles on the tensor cores (split TF32,
+//     scan_bwd.cuh tiles_mma; v exact in TF32 when bfloat16).  The pairs
+//     (t, s) factor at the chunk's half: for t >= 16 > s, Pi = P_t Q_s with
+//     P_t = prod_{16<=m<t} w_m and Q_s = prod_{s<m<16} w_m (both products
+//     of decays <= 1), so that block's A, its dr and dk parts are tile
+//     products too, and its share of dlogw's rectangle is a prefix sum of
+//     k_s (dk's part)_s (tau < 16) or a suffix sum of r_t (dr's part)_t
+//     (tau >= 16).  The pairs of the two diagonal blocks (t, s in one half)
+//     run on the CUDA cores, per channel: two groups of threads a channel,
+//     each owning every other column s, walk the half's rows backward with
+//     the running product, the rectangle's column sums and dk's sums in
+//     registers; the other warps compute those blocks' A a row a warp,
+//     summing over the channels by shuffles (scan_bwd.cuh lane_sums).
+// du's parts go to scratch that wkv6_bwd_sum adds in index order: no
+// atomics, so two calls give the same bytes.  No exponent is positive:
+// only exp(p), exp(q), exp(logw) and products of them.  A ragged last
+// chunk is zero-filled (zero r, k, v, dy and log decay take no gradient
+// and leave the state as it was).
 //
 // Bound: bytes (r, k, v and their gradients, logw, dlogw and dy, PERF.md);
-// this design moves the recomputed states through L2 and spends several
-// CUDA-core instructions a state element and step.
+// the chunk states (sc, dsc) add 2 D^2 floats a chunk written and read.
 
-struct BwdArgs {
+constexpr int kBT = 32;                 // steps per chunk of the backward
+constexpr int kWalkStages = 2;          // the walks' ring: a chunk read, one in flight
+
+__device__ __forceinline__ void from_f(float& d, float x) { d = x; }
+__device__ __forceinline__ void from_f(bf16& d, float x) { d = __float2bfloat16(x); }
+// d[0], d[1] = a, b in d's dtype, one 4- or 8-byte store (d 2-element aligned)
+__device__ __forceinline__ void store2(float* d, float a, float b) {
+  *reinterpret_cast<float2*>(d) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(bf16* d, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(d) = __floats2bfloat162_rn(a, b);
+}
+
+struct WalkArgs {
+  const void* src;       // k (the states) or r (the gradient)
+  const float* logw;
+  const void* X;         // v (the states) or dy (the gradient), (B, L, H, D)
+  const float* init;     // s0, or dsT (null: zeros)
+  float* out;            // sc or dsc, (B H, n_chunks, D, D)
+  float* last;           // ds0 (the gradient walk)
+  int L, H;
+  long long s[3][3];     // element strides (batch, step, head) of src, logw, X
+};
+
+// Shared-memory layout of wkv6_bwd_walk: a ring of two chunks of the
+// rows' source (k or r), logw and the operand X (v or dy); the rows'
+// weights and the chunk's decay.
+template <typename TS, typename TW, int D>
+struct WalkLayout {
+  static constexpr int kLdX = v_row<TW, D>();
+  static constexpr int kLdW = D + 8;       // weights: rows s, column i
+  static constexpr int kSrc = kBT * D * static_cast<int>(sizeof(TS));
+  static constexpr int kLw = kBT * D * 4;
+  static constexpr int kX = kBT * kLdX * static_cast<int>(sizeof(TW));
+  static constexpr int kStage = kSrc + kLw + kX;
+  static constexpr int kBytes = kWalkStages * kStage + 4 * (kBT * kLdW + D + D * D);
+  static_assert(kSrc % 16 == 0 && kX % 16 == 0 && (kBT * kLdW + D) % 4 == 0, "16-byte rows");
+  // the state's (16 x 8) tiles, shared out among the warps as ssd_chunks'
+  static constexpr int kNT = D / 8;
+  static constexpr int kSTiles = (D / 16) * kNT;
+  static constexpr int kSPer = (kSTiles + kWarps - 1) / kWarps;
+  static_assert(kNT % kSPer == 0, "a warp's state tiles share their rows");
+};
+
+template <typename TS, typename TW, int D, bool kGrad>
+__global__ void __launch_bounds__(kThreads, 2)
+wkv6_bwd_walk(WalkArgs a) {
+  using K = WalkLayout<TS, TW, D>;
+  constexpr bool kExactX = std::is_same<TW, bf16>::value;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* sWa = reinterpret_cast<float*>(smem + kWalkStages * K::kStage);
+  float* sDec = sWa + kBT * K::kLdW;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int L = a.L, H = a.H;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const long long bh = static_cast<long long>(b) * H + h;
+  const TS* srcb = static_cast<const TS*>(a.src) + b * a.s[0][0] + h * a.s[0][2];
+  const float* lwb = a.logw + b * a.s[1][0] + h * a.s[1][2];
+  const TW* Xb = static_cast<const TW*>(a.X) + b * a.s[2][0] + h * a.s[2][2];
+  const int n_chunks = (L + kBT - 1) / kBT;
+
+  auto sSrc = [&](int st) { return reinterpret_cast<TS*>(smem + st * K::kStage); };
+  auto sLw = [&](int st) { return reinterpret_cast<float*>(smem + st * K::kStage + K::kSrc); };
+  auto sX = [&](int st) {
+    return reinterpret_cast<TW*>(smem + st * K::kStage + K::kSrc + K::kLw);
+  };
+  auto load_chunk = [&](int c, int st) {
+    const int c0 = c * kBT;
+    constexpr int kSP = D * static_cast<int>(sizeof(TS)) / 16, kSE = 16 / static_cast<int>(sizeof(TS));
+    constexpr int kXP = D * static_cast<int>(sizeof(TW)) / 16, kXE = 16 / static_cast<int>(sizeof(TW));
+    for (int e = tid; e < kBT * kSP; e += kThreads) {
+      const int r = e / kSP, col = (e % kSP) * kSE;
+      const bool in = c0 + r < L;
+      cp_async::copy16(sSrc(st) + r * D + col, srcb + (in ? c0 + r : 0) * a.s[0][1] + col, in);
+    }
+    for (int e = tid; e < kBT * (D / 4); e += kThreads) {
+      const int r = e / (D / 4), col = (e % (D / 4)) * 4;
+      const bool in = c0 + r < L;
+      cp_async::copy16(sLw(st) + r * D + col, lwb + (in ? c0 + r : 0) * a.s[1][1] + col, in);
+    }
+    for (int e = tid; e < kBT * kXP; e += kThreads) {
+      const int r = e / kXP, col = (e % kXP) * kXE;
+      const bool in = c0 + r < L;
+      cp_async::copy16(sX(st) + r * K::kLdX + col, Xb + (in ? c0 + r : 0) * a.s[2][1] + col, in);
+    }
+  };
+
+  const int tau0 = warp * K::kSPer;
+  const bool has_state = tau0 < K::kSTiles;
+  const int sn0 = (tau0 / K::kNT) * 16, sp0 = (tau0 % K::kNT) * 8;
+  float hacc[K::kSPer][4];
+#pragma unroll
+  for (int j = 0; j < K::kSPer; ++j) {
+    const int p0 = sp0 + 8 * j;
+    float2 v0 = {0.f, 0.f}, v1 = {0.f, 0.f};
+    if (has_state && a.init != nullptr) {
+      const float* ib = a.init + bh * D * D;
+      v0 = *reinterpret_cast<const float2*>(ib + (sn0 + g) * D + p0 + 2 * t);
+      v1 = *reinterpret_cast<const float2*>(ib + (sn0 + g + 8) * D + p0 + 2 * t);
+    }
+    hacc[j][0] = v0.x;
+    hacc[j][1] = v0.y;
+    hacc[j][2] = v1.x;
+    hacc[j][3] = v1.y;
+  }
+  // the state before (or the gradient after) each chunk goes out through
+  // shared memory, by one bulk copy that runs while the walk goes on
+  // (scattered 8-byte stores from the accumulators stalled it)
+  float* sOut = sDec + D;                   // (D, D)
+  // put(offset in a row-major (D, D) state, two neighbouring values) for
+  // this warp's part of the state
+  auto each_pair = [&](auto&& put) {
+    if (!has_state) return;
+#pragma unroll
+    for (int j = 0; j < K::kSPer; ++j) {
+      const int p0 = sp0 + 8 * j;
+      put((sn0 + g) * D + p0 + 2 * t, make_float2(hacc[j][0], hacc[j][1]));
+      put((sn0 + g + 8) * D + p0 + 2 * t, make_float2(hacc[j][2], hacc[j][3]));
+    }
+  };
+  auto store_state = [&](float* dst) {
+    each_pair([&](int o, float2 v) { *reinterpret_cast<float2*>(sOut + o) = v; });
+    cp_async::fence_async();
+    __syncthreads();
+    if (tid == 0) cp_async::bulk_store(dst, sOut, D * D * 4);
+  };
+
+  float* outb = a.out + bh * n_chunks * D * D;
+  auto chunk_at = [&](int n) { return kGrad ? n_chunks - 1 - n : n; };
+#pragma unroll
+  for (int n = 0; n < kWalkStages - 1; ++n) {
+    if (n < n_chunks) load_chunk(chunk_at(n), n);
+    cp_async::commit();
+  }
+  for (int n = 0; n < n_chunks; ++n) {
+    const int c = chunk_at(n), st = n % kWalkStages;
+    const int ahead = n + kWalkStages - 1;
+    if (ahead < n_chunks) load_chunk(chunk_at(ahead), ahead % kWalkStages);
+    cp_async::commit();
+    cp_async::wait<kWalkStages - 1>();      // chunk c has landed
+    if (tid == 0) cp_async::bulk_wait_read();  // the last state is out of sOut
+    __syncthreads();
+    store_state(outb + static_cast<long long>(c) * D * D);
+    // the rows' weights, a thread a channel: r_t exp(p_t) (gradient) or
+    // k_s exp(q_s) (state), and the chunk's decay exp(d_last)
+    if (tid < D) {
+      const TS* cs = sSrc(st);
+      const float* clw = sLw(st);
+      float run = 0.f;
+#pragma unroll 4
+      for (int n2 = 0; n2 < kBT; ++n2) {
+        const int s = kGrad ? n2 : kBT - 1 - n2;
+        sWa[s * K::kLdW + tid] = to_f(cs[s * D + tid]) * expf(run);
+        run += clw[s * D + tid];
+      }
+      sDec[tid] = expf(run);
+    }
+    __syncthreads();
+    if (has_state) {
+      const float d0 = sDec[sn0 + g], d1 = sDec[sn0 + g + 8];
+#pragma unroll
+      for (int j = 0; j < K::kSPer; ++j) {
+        hacc[j][0] *= d0;
+        hacc[j][1] *= d0;
+        hacc[j][2] *= d1;
+        hacc[j][3] *= d1;
+      }
+      const TW* cx = sX(st);
+      scan_bwd::tiles_mma<false, kExactX, K::kSPer>(
+          hacc, [&](int m, int k) { return sWa[k * K::kLdW + m]; },
+          [&](int k, int n2) { return to_f(cx[k * K::kLdX + n2]); }, sn0, sp0, 0, kBT, g, t);
+    }
+    __syncthreads();                        // stage st and the weights are read
+  }
+  cp_async::wait<0>();
+  if (kGrad)
+    each_pair([&](int o, float2 v) { *reinterpret_cast<float2*>(a.last + bh * D * D + o) = v; });
+  if (tid == 0) cp_async::bulk_wait();
+}
+
+struct ChunkArgs {
   const void* r;
   const void* k;
   const void* v;
   const float* logw;
   const float* u;
-  const float* s0;
   const float* dy;       // (B, L, H, D), contiguous
-  const float* dsT;      // (B, H, D, D), or null: zeros
+  const float* sc;       // (B H, n_chunks, D, D): the state before each chunk
+  const float* dsc;      // (B H, n_chunks, D, D): the gradient after it
   void* dr;              // (B, L, H, D), r's dtype, contiguous; dk and dv alike
   void* dk;
   void* dv;
   float* dlogw;          // (B, L, H, D)
-  float* du_part;        // (B, H, D)
-  float* ds0;            // (B, H, D, D)
-  float* bnd;            // (B H, n_chunks, D D) scratch
-  float* hist;           // (B H, kLc, D D) scratch
+  float* du_part;        // (B, n_chunks, H, D)
   int L, H;
-  // element strides (batch, step, head) of r, k, v, logw; D is contiguous
-  long long s[4][3];
+  long long s[4][3];     // element strides (batch, step, head) of r, k, v, logw
 };
 
-__device__ __forceinline__ void from_f(float& d, float x) { d = x; }
-__device__ __forceinline__ void from_f(bf16& d, float x) { d = __float2bfloat16(x); }
+// Shared-memory layout of wkv6_bwd_chunk, in bytes: rows of D float32
+// padded to kLd floats (4 words past a multiple of 32); r, k and v kept in
+// their own dtype (rows of kLdX elements, 16-byte aligned).
+template <typename T, int D>
+struct ChunkLayout {
+  static constexpr int kLd = D + 4;
+  static constexpr int kLdX = std::is_same<T, bf16>::value ? D + 8 : D + 4;
+  static constexpr int kLdT = kBT + 4;
+  static constexpr int kTD = kBT * kLd * 4;                  // a (kBT, D) float32 array
+  static constexpr int kX = kBT * kLdX * static_cast<int>(sizeof(T));
+  static constexpr int kVA = kX > kBT * kLdT * 4 ? kX : kBT * kLdT * 4;      // v, then A
+  static constexpr int kRows = (D > kBT ? D : kBT) * kLd * 4;                // S_in, then sums
+  static constexpr int kGP = D * kLd > 2 * kBT * D ? D * kLd * 4 : 2 * kBT * D * 4;
+  // r, k, v (then A); w (logw, then exp(logw)), dy; exp(p) then dr's sums;
+  // exp(q); dk's state part; S_in then dlogw's sums; dS_out then the
+  // second pair group's dr and rectangle sums; dA; and the vectors
+  static constexpr int oK = kX, oV = 2 * kX, oW = 2 * kX + kVA;
+  static constexpr int oDy = oW + kTD, oDrI = oDy + kTD, oQd = oDrI + kTD, oDkS = oQd + kTD;
+  static constexpr int oS = oDkS + kTD, oG = oS + kRows, oDA = oG + kGP;
+  static constexpr int oVec = oDA + kBT * kLdT * 4;
+  static constexpr int kHB = kBT / 2;         // steps a half of the chunk
+  // the off-diagonal block's factors: r P, k Q, P then dr's part, Q then
+  // dk's part, (kHB, kLd) each
+  static constexpr int oPair = oVec + 4 * (2 * D + kBT);
+  static constexpr int kBytes = oPair + 4 * 4 * kHB * kLd;
+  static_assert(kX % 16 == 0 && kVA % 16 == 0, "16-byte rows");
+  static constexpr int kCW = (D + 31) / 32;   // warps a channel a thread
+  static constexpr int kNA = kWarps - 2 * kCW;   // warps computing A
+  static constexpr int kNG = 2;               // n-tiles of 8 a warp's work item
+};
 
 template <typename T, int D>
-__global__ void __launch_bounds__(scan_bwd::kThreads, 2)
-wkv6_bwd_chunks(BwdArgs a) {
-  using scan_bwd::col_sums;
-  using scan_bwd::load_row;
-  using scan_bwd::row_sum;
-  using scan_bwd::store_row;
-  constexpr int kC = scan_bwd::kLc, kNT = scan_bwd::kThreads, kW = scan_bwd::kWarps;
-  constexpr int kTPR = kNT / D;             // threads a row
-  constexpr int E = D / kTPR;               // value channels a thread
-  constexpr int kDD = D * D;
-  static_assert(kTPR * D == kNT && E * kTPR == D && kTPR <= 32, "layout");
-  __shared__ float sr[kC][D], sk[kC][D], sv[kC][D], sw[kC][D], sdy[kC][D];
-  __shared__ float sdyv[kC], sruk[kC], su[D];
-  __shared__ float part_dv[kW][kC][D];
+__global__ void __launch_bounds__(kThreads, 2)
+wkv6_bwd_chunk(ChunkArgs a) {
+  using K = ChunkLayout<T, D>;
+  using scan_bwd::tiles_mma;
+  constexpr bool kExactV = std::is_same<T, bf16>::value;
+  constexpr int kLd = K::kLd, kLdX = K::kLdX, kLdT = K::kLdT, kNG = K::kNG, kCW = K::kCW;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* sr = reinterpret_cast<T*>(smem);
+  T* sk = reinterpret_cast<T*>(smem + K::oK);
+  T* sv = reinterpret_cast<T*>(smem + K::oV);
+  float* sA = reinterpret_cast<float*>(smem + K::oV);     // (kBT, kLdT), once v is read
+  float* sw = reinterpret_cast<float*>(smem + K::oW);     // logw, then w = exp(logw)
+  float* sdy = reinterpret_cast<float*>(smem + K::oDy);
+  float* sdrI = reinterpret_cast<float*>(smem + K::oDrI); // exp(p_t); exp(p_t) (S_in dy_t); + pairs
+  float* sQd = reinterpret_cast<float*>(smem + K::oQd);   // exp(q_s)
+  float* sdkS = reinterpret_cast<float*>(smem + K::oDkS); // exp(q_s) (dS_out v_s)
+  float* sS = reinterpret_cast<float*>(smem + K::oS);     // S_in; then dlogw's sums
+  float* sG = reinterpret_cast<float*>(smem + K::oG);     // dS_out; then the second group's sums
+  float* sdA = reinterpret_cast<float*>(smem + K::oDA);   // (kBT, kLdT)
+  float* sC0 = reinterpret_cast<float*>(smem + K::oVec);  // exp(d_last) <S_in, dS_out>_j
+  float* sU = sC0 + D;
+  float* sRuk = sU + D;                     // <r_t, u o k_t>
+  // the off-diagonal block (t >= kHB > s) of the pairs, Pi[t,s] = P_t Q_s
+  // with P_t = prod_{kHB<=m<t} w_m and Q_s = prod_{s<m<kHB} w_m
+  float* sRP = reinterpret_cast<float*>(smem + K::oPair);   // r_t P_t, rows t - kHB
+  float* sKQ = sRP + K::kHB * kLd;                          // k_s Q_s
+  float* sP = sKQ + K::kHB * kLd;                           // P_t, then dr's part
+  float* sQ = sP + K::kHB * kLd;                            // Q_s, then dk's part
+  auto rv = [&](int s, int i) { return to_f(sr[s * kLdX + i]); };
+  auto kv = [&](int s, int i) { return to_f(sk[s * kLdX + i]); };
 
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int L = a.L, H = a.H;
+  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int L = a.L, H = a.H, n_chunks = gridDim.x;
+  const int c0 = c * kBT;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int i = tid / kTPR, q = tid % kTPR, col0 = q * E;
-  const int own = i * D + col0;             // this thread's offset in a state
+  const int g = lane >> 2, t = lane & 3;
   const long long bh = static_cast<long long>(b) * H + h;
-  const T* rb = static_cast<const T*>(a.r) + b * a.s[0][0] + h * a.s[0][2];
-  const T* kb = static_cast<const T*>(a.k) + b * a.s[1][0] + h * a.s[1][2];
-  const T* vb = static_cast<const T*>(a.v) + b * a.s[2][0] + h * a.s[2][2];
-  const float* wb = a.logw + b * a.s[3][0] + h * a.s[3][2];
-  const int n_chunks = (L + kC - 1) / kC;
-  float* bnd = a.bnd + bh * n_chunks * kDD;
-  float* hist = a.hist + bh * kC * kDD;
-  if (tid < D) su[tid] = a.u[h * D + tid];
+  const long long st_off = (bh * n_chunks + c) * D * D;
+  const long long HD = static_cast<long long>(H) * D;
+  const long long row0 = (static_cast<long long>(b) * L + c0) * HD + static_cast<long long>(h) * D;
 
-  // steps t0 .. t0 + n_s - 1 into shared memory: k, v and the decay, and
-  // with_dy r and dy
-  auto stage = [&](int t0, int n_s, bool with_dy) {
-    for (int e = tid; e < n_s * D; e += kNT) {
-      const int s = e / D, c = e % D;
-      const long long t = t0 + s;
-      sk[s][c] = to_f(kb[t * a.s[1][1] + c]);
-      sv[s][c] = to_f(vb[t * a.s[2][1] + c]);
-      sw[s][c] = expf(wb[t * a.s[3][1] + c]);
-      if (with_dy) {
-        sr[s][c] = to_f(rb[t * a.s[0][1] + c]);
-        sdy[s][c] = a.dy[((b * static_cast<long long>(L) + t) * H + h) * D + c];
-      }
-    }
-  };
-  auto step = [&](float (&st)[E], int s) {
-    const float wi = sw[s][i], ki = sk[s][i];
-#pragma unroll
-    for (int j = 0; j < E; ++j) st[j] = fmaf(wi, st[j], ki * sv[s][col0 + j]);
-  };
-
-  // phase 1: the state before each chunk
+  // the chunk into shared memory by cp.async (zero past L)
   {
-    float st[E];
-    load_row<E>(st, a.s0 + bh * kDD + own);
-    for (int c = 0; c < n_chunks; ++c) {
-      const int t0 = c * kC, n_s = min(kC, L - t0);
-      store_row<E>(bnd + static_cast<long long>(c) * kDD + own, st);
-      __syncthreads();                      // the previous chunk's stage is read
-      stage(t0, n_s, false);
-      __syncthreads();
-      for (int s = 0; s < n_s; ++s) step(st, s);
+    const T* src[3] = {static_cast<const T*>(a.r) + b * a.s[0][0] + h * a.s[0][2],
+                       static_cast<const T*>(a.k) + b * a.s[1][0] + h * a.s[1][2],
+                       static_cast<const T*>(a.v) + b * a.s[2][0] + h * a.s[2][2]};
+    T* dst[3] = {sr, sk, sv};
+    constexpr int kXP = D * static_cast<int>(sizeof(T)) / 16, kXE = 16 / static_cast<int>(sizeof(T));
+#pragma unroll
+    for (int x = 0; x < 3; ++x)
+      for (int e = tid; e < kBT * kXP; e += kThreads) {
+        const int r = e / kXP, col = (e % kXP) * kXE;
+        const bool in = c0 + r < L;
+        cp_async::copy16(dst[x] + r * kLdX + col, src[x] + (in ? c0 + r : 0) * a.s[x][1] + col, in);
+      }
+    const float* wb = a.logw + b * a.s[3][0] + h * a.s[3][2];
+    for (int e = tid; e < kBT * (D / 4); e += kThreads) {
+      const int r = e / (D / 4), col = (e % (D / 4)) * 4;
+      const bool in = c0 + r < L;
+      cp_async::copy16(sw + r * kLd + col, wb + (in ? c0 + r : 0) * a.s[3][1] + col, in);
+      cp_async::copy16(sdy + r * kLd + col, a.dy + row0 + (in ? r : 0) * HD + col, in);
+    }
+    for (int e = tid; e < D * (D / 4); e += kThreads) {
+      const int i = e / (D / 4), col = (e % (D / 4)) * 4;
+      cp_async::copy16(sS + i * kLd + col, a.sc + st_off + i * D + col, true);
+      cp_async::copy16(sG + i * kLd + col, a.dsc + st_off + i * D + col, true);
+    }
+    cp_async::commit();
+    if (tid < D) sU[tid] = a.u[h * D + tid];
+    cp_async::wait<0>();
+  }
+  __syncthreads();
+
+  // 1. Two threads a channel: one walks the steps backward for exp(q_s)
+  // and the off-diagonal block's Q_s and k_s Q_s (s < kHB); the other
+  // forward for exp(p_t), P_t and r_t P_t (t >= kHB), and exp(d_last)
+  // <S_in, dS_out>_j.  Meanwhile the other warps take dA = dy v^T on the
+  // causal tiles (the diagonal's dy_t . v_t included).
+  if (warp < 2 * kCW) {
+    const bool fwd = warp >= kCW;
+    const int i = (warp % kCW) * 32 + lane;
+    if (i < D && !fwd) {
+      float q = 0.f, qq = 1.f;
+      for (int s = kBT - 1; s >= 0; --s) {
+        const float lw = sw[s * kLd + i];
+        sQd[s * kLd + i] = expf(q);
+        q += lw;
+        if (s < K::kHB) {
+          sQ[s * kLd + i] = qq;
+          sKQ[s * kLd + i] = kv(s, i) * qq;
+          qq *= expf(lw);
+        }
+      }
+    } else if (i < D) {
+      float p = 0.f, pp = 1.f;
+      for (int s = 0; s < kBT; ++s) {
+        const float lw = sw[s * kLd + i];
+        sdrI[s * kLd + i] = expf(p);
+        p += lw;
+        if (s >= K::kHB) {
+          sP[(s - K::kHB) * kLd + i] = pp;
+          sRP[(s - K::kHB) * kLd + i] = rv(s, i) * pp;
+          pp *= expf(lw);
+        }
+      }
+      float dot = 0.f;
+      for (int j = 0; j < D; ++j) dot = fmaf(sS[i * kLd + j], sG[i * kLd + j], dot);
+      sC0[i] = expf(p) * dot;
+    }
+  } else {
+    for (int tile = warp - 2 * kCW; tile < 6; tile += K::kNA) {
+      const int r0 = tile < 2 ? 0 : 16, s0 = (tile < 2 ? tile : tile - 2) * 8;
+      float acc[1][4] = {};
+      tiles_mma<false, kExactV, 1>(acc, [&](int m, int kk) { return sdy[m * kLd + kk]; },
+                                   [&](int kk, int n) { return to_f(sv[n * kLdX + kk]); }, r0, s0, 0, D, g, t);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int tr = r0 + g + 8 * (e >> 1), sc = s0 + 2 * t + (e & 1);
+        if (sc <= tr) sdA[tr * kLdT + sc] = acc[0][e];
+      }
+    }
+  }
+  __syncthreads();
+  // w = exp(logw) in place, for the pairs (read after step 2)
+  for (int e = tid; e < kBT * D; e += kThreads) {
+    float* x = sw + (e / D) * kLd + e % D;
+    *x = expf(*x);
+  }
+
+  // 2. Products of tiles, by work items of kNG tiles of a row: dr's inter
+  // part exp(p_t) (dy S_in^T)[t, i], dk's state part exp(q_s) (v
+  // dS_out^T)[s, i], and dv's state part (k o exp(q)) dS_out, which the
+  // warp keeps in registers (at most one such item a warp); and the
+  // off-diagonal block: dr's part P_t (dA (k Q))[t, i] for t >= kHB, dk's
+  // part Q_s (dA^T (r P))[s, i] for s < kHB, and A[t, s] = (r P)(k Q)^T,
+  // kept in dA's free block above the diagonal (rows s, columns kHB + t)
+  constexpr int kDG = D / 8 / kNG;          // column groups
+  constexpr int kHB = K::kHB;
+  float dvacc[kNG][4] = {};
+  int dv_item = -1;
+  for (int item = warp; item < 6 * kDG + 1; item += kWarps) {
+    if (item == 6 * kDG) {
+      float acc[kNG][4] = {};
+      tiles_mma<false, false, kNG>(acc, [&](int m, int kk) { return sRP[m * kLd + kk]; },
+                                   [&](int kk, int n) { return sKQ[n * kLd + kk]; }, 0, 0, 0, D, g, t);
+#pragma unroll
+      for (int j = 0; j < kNG; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int tr = g + 8 * (e >> 1), sc = 8 * j + 2 * t + (e & 1);
+          sdA[sc * kLdT + kHB + tr] = acc[j][e];
+        }
+      continue;
+    }
+    const int kind = item / (2 * kDG), q = item % (2 * kDG);
+    const int m0 = (q / kDG) * 16, n0 = (q % kDG) * 8 * kNG;
+    if (kind == 2) {
+      dv_item = q;
+      tiles_mma<false, false, kNG>(dvacc, [&](int m, int kk) { return kv(m, kk) * sQd[m * kLd + kk]; },
+                                   [&](int kk, int n) { return sG[kk * kLd + n]; }, m0, n0, 0, D, g, t);
+      continue;
+    }
+    float acc[kNG][4] = {}, off[kNG][4] = {};
+    float* out = kind == 0 ? sdrI : sdkS;
+    const float* scale = kind == 0 ? sdrI : sQd;
+    // the off-diagonal block's part: rows t >= kHB of dr, rows s < kHB of dk
+    const bool has_off = kind == 0 ? m0 == kHB : m0 == 0;
+    float* off_out = kind == 0 ? sP : sQ;
+    if (kind == 0) {
+      tiles_mma<false, false, kNG>(acc, [&](int m, int kk) { return sdy[m * kLd + kk]; },
+                                   [&](int kk, int n) { return sS[n * kLd + kk]; }, m0, n0, 0, D, g, t);
+      if (has_off)
+        tiles_mma<false, false, kNG>(off, [&](int m, int kk) { return sdA[(kHB + m) * kLdT + kk]; },
+                                     [&](int kk, int n) { return sKQ[kk * kLd + n]; }, 0, n0, 0, kHB, g, t);
+    } else {
+      tiles_mma<kExactV, false, kNG>(acc, [&](int m, int kk) { return to_f(sv[m * kLdX + kk]); },
+                                     [&](int kk, int n) { return sG[n * kLd + kk]; }, m0, n0, 0, D, g, t);
+      if (has_off)
+        tiles_mma<false, false, kNG>(off, [&](int m, int kk) { return sdA[(kHB + kk) * kLdT + m]; },
+                                     [&](int kk, int n) { return sRP[kk * kLd + n]; }, 0, n0, 0, kHB, g, t);
+    }
+#pragma unroll
+    for (int j = 0; j < kNG; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = m0 + g + 8 * (e >> 1), col = n0 + 8 * j + 2 * t + (e & 1);
+        out[row * kLd + col] = scale[row * kLd + col] * acc[j][e];
+        if (has_off) {
+          float* o = off_out + (row - m0) * kLd + col;
+          *o *= off[j][e];
+        }
+      }
+  }
+  __syncthreads();
+
+  // 3a. A thread a channel: dlogw's sums that need no pair of a
+  // diagonal block, sum_{t > tau} r_t exp(p_t) (S_in dy_t) + exp(d_last)
+  // <S_in, dS_out>_j + sum_{s < tau} k_s exp(q_s) (dS_out v_s), with the
+  // off-diagonal block's rectangle: sum_{s < tau} k_s (dk's part)_s for
+  // tau < kHB, sum_{t > tau} r_t (dr's part)_t for tau >= kHB; into
+  // S_in's free rows.  Then the off-diagonal parts join dr's and dk's
+  // sums; and du's part.
+  if (tid < D) {
+    const int i = tid;
+    float run = 0.f, run_off = 0.f;
+    for (int s = 0; s < kBT; ++s) {
+      const float ks = kv(s, i);
+      sS[s * kLd + i] = s < kHB ? run + run_off : run;
+      run = fmaf(ks, sdkS[s * kLd + i], run);
+      if (s < kHB) {
+        const float dko = sQ[s * kLd + i];
+        run_off = fmaf(ks, dko, run_off);
+        sdkS[s * kLd + i] += dko;
+      }
+    }
+    float psuf = sC0[i], psuf_off = 0.f, du = 0.f;
+    for (int tau = kBT - 1; tau >= 0; --tau) {
+      const float rt = rv(tau, i);
+      sS[tau * kLd + i] += tau >= kHB ? psuf + psuf_off : psuf;
+      psuf = fmaf(rt, sdrI[tau * kLd + i], psuf);
+      if (tau >= kHB) {
+        const float dro = sP[(tau - kHB) * kLd + i];
+        psuf_off = fmaf(rt, dro, psuf_off);
+        sdrI[tau * kLd + i] += dro;
+      }
+      du = fmaf(rt * kv(tau, i), sdA[tau * kLdT + tau], du);
+    }
+    a.du_part[((static_cast<long long>(b) * n_chunks + c) * H + h) * D + i] = du;
+  }
+  __syncthreads();
+
+  // 3b. The pairs (t, s), s < t, of the two diagonal blocks (t and s in
+  // one half).  Two groups of kCW warps, a channel a thread, group q
+  // owning the columns s = q, q + 2, ...: rows tau backward, in each the
+  // owned s of its half backward with Pi = prod_{s<m<tau} w_m; the
+  // rectangle's column sums suf and dk's sums over t stay in registers.  Each row's rectangle sum and dr's sum over the owned s
+  // go to the group's arrays (group 0 adds them to dlogw's and dr's
+  // sums).  The other warps: A[t,s] and <r_t, u o k_t>, a row a warp, the
+  // lanes holding channels.
+  float* p1r = sG;                          // the second group's rectangle sums (kBT, D)
+  float* p1d = sG + kBT * D;                // and dr's sums
+  if (warp < 2 * kCW) {
+    const int q = warp / kCW, i = (warp % kCW) * 32 + lane;
+    if (i < D) {
+      T* dkb = static_cast<T*>(a.dk);
+      const float ui = sU[i];
+      // one half of the chunk: rows tau of the half backward, the owned
+      // s = lo + q + 2 x < tau of the half (x = 0 .. kHB / 2 - 1) in
+      // registers, each row's s backward with Pi = prod_{s<m<tau} w_m
+      auto half_walk = [&](auto hc) {
+        constexpr int lo = decltype(hc)::value * kHB, kX = kHB / 2;
+        float suf[kX], dkp[kX];
+#pragma unroll
+        for (int x = 0; x < kX; ++x) suf[x] = dkp[x] = 0.f;
+        for (int tau = lo + kHB - 1; tau >= lo; --tau) {
+          float rect = 0.f;
+#pragma unroll
+          for (int x = 0; x < kX; ++x)
+            if (lo + q + 2 * x < tau) rect += suf[x];
+          const float rt = rv(tau, i);
+          // Pi for the largest owned s < tau: w_{tau-1} when that s is tau - 2
+          float pi = (tau - 1 - lo - q) & 1 ? sw[max(tau - 1, 0) * kLd + i] : 1.f;
+          float dr = 0.f;
+#pragma unroll
+          for (int x = kX - 1; x >= 0; --x) {
+            const int s = lo + q + 2 * x;
+            const bool on = s < tau;
+            const float ks = kv(s, i);
+            const float d = on ? sdA[tau * kLdT + s] : 0.f;
+            const float wpair = sw[s * kLd + i] * (s >= 1 ? sw[(s - 1) * kLd + i] : 1.f);
+            const float y = d * rt * pi;        // dA r_tau Pi
+            dr = fmaf(d, ks * pi, dr);
+            dkp[x] += y;
+            suf[x] = fmaf(y, ks, suf[x]);
+            pi = on ? pi * wpair : pi;
+          }
+          if (q == 0) {
+            sS[tau * kLd + i] += rect;
+            sdrI[tau * kLd + i] += dr;
+          } else {
+            p1r[tau * D + i] = rect;
+            p1d[tau * D + i] = dr;
+          }
+        }
+#pragma unroll
+        for (int x = 0; x < kX; ++x) {
+          const int s = lo + q + 2 * x;
+          if (c0 + s < L)
+            from_f(dkb[row0 + s * HD + i],
+                   sdkS[s * kLd + i] + dkp[x] + ui * rv(s, i) * sdA[s * kLdT + s]);
+        }
+      };
+      half_walk(std::integral_constant<int, 1>{});
+      half_walk(std::integral_constant<int, 0>{});
+    }
+  } else {
+    // A[tr, s] and <r_tr, u o k_tr>, a row a warp: the kHB s of the row's
+    // half in registers (0 where s >= tr), summed over the lanes' channels
+    // at once; the off-diagonal block's A from step 2
+    constexpr int kPer = (D + 31) / 32;     // channels a lane
+    for (int tr = warp - 2 * kCW; tr < kBT; tr += K::kNA) {
+      const int lo = tr & kHB;
+      float rt[kPer], pi[kPer], v[kHB];
+      float ruk = 0.f;
+#pragma unroll
+      for (int m = 0; m < kPer; ++m) {
+        const int i = lane + 32 * m;
+        rt[m] = i < D ? rv(tr, i) : 0.f;
+        pi[m] = 1.f;
+        if (i < D) ruk = fmaf(rt[m] * sU[i], kv(tr, i), ruk);
+      }
+#pragma unroll
+      for (int x = kHB - 1; x >= 0; --x) {
+        const int s = lo + x;
+        const bool below = s < tr;
+        v[x] = 0.f;
+#pragma unroll
+        for (int m = 0; m < kPer; ++m) {
+          const int i = lane + 32 * m;
+          if (i < D) {
+            v[x] = fmaf(rt[m] * kv(s, i), below ? pi[m] : 0.f, v[x]);
+            pi[m] *= below ? sw[s * kLd + i] : 1.f;
+          }
+        }
+      }
+      const float sum = scan_bwd::lane_sums(v, lane);
+      if (lane < kHB) {
+        sA[tr * kLdT + lo + lane] = sum;
+        if (lo) sA[tr * kLdT + lane] = sdA[lane * kLdT + tr];
+        else sA[tr * kLdT + kHB + lane] = 0.f;
+      }
+      ruk = scan_bwd::warp_sum(ruk);
+      if (lane == 0) sRuk[tr] = ruk;
+    }
+  }
+  __syncthreads();
+
+  // 3c. dlogw and dr, the two groups' sums added in order
+  {
+    T* drb = static_cast<T*>(a.dr);
+    for (int e = tid; e < kBT * D; e += kThreads) {
+      const int tau = e / D, i = e % D;
+      if (c0 + tau >= L) continue;
+      a.dlogw[row0 + tau * HD + i] = sS[tau * kLd + i] + p1r[e];
+      from_f(drb[row0 + tau * HD + i], sdrI[tau * kLd + i] + p1d[e]
+                                       + sU[i] * kv(tau, i) * sdA[tau * kLdT + tau]);
     }
   }
 
-  // phase 2: the chunks backward
-  float g[E];
-  if (a.dsT != nullptr) {
-    load_row<E>(g, a.dsT + bh * kDD + own);
-  } else {
+  // 4. dv = (k o exp(q)) dS_out (kept from 2) + A^T dy + <r, u o k> dy
+  if (dv_item >= 0) {
+    T* dvb = static_cast<T*>(a.dv);
+    const int m0 = (dv_item / kDG) * 16, n0 = (dv_item % kDG) * 8 * kNG;
+    tiles_mma<false, false, kNG>(dvacc, [&](int m, int kk) { return sA[kk * kLdT + m]; },
+                                 [&](int kk, int n) { return sdy[kk * kLd + n]; }, m0, n0, m0, kBT, g, t);
 #pragma unroll
-    for (int j = 0; j < E; ++j) g[j] = 0.f;
-  }
-  const float ui = su[i];
-  float du = 0.f;
-  T* drb = static_cast<T*>(a.dr);
-  T* dkb = static_cast<T*>(a.dk);
-  T* dvb = static_cast<T*>(a.dv);
-  for (int c = n_chunks - 1; c >= 0; --c) {
-    const int t0 = c * kC, n_s = min(kC, L - t0);
-    __syncthreads();                        // the previous chunk's stage and partials are read
-    stage(t0, n_s, true);
-    __syncthreads();
-    // the step's scalars <dy_t, v_t> and <r_t, u o k_t>, a warp a step
-    for (int s = warp; s < n_s; s += kW) {
-      float dyv = 0.f, ruk = 0.f;
-      for (int c2 = lane; c2 < D; c2 += 32) {
-        dyv = fmaf(sdy[s][c2], sv[s][c2], dyv);
-        ruk = fmaf(sr[s][c2] * su[c2], sk[s][c2], ruk);
-      }
-      dyv = scan_bwd::warp_sum(dyv);
-      ruk = scan_bwd::warp_sum(ruk);
-      if (lane == 0) {
-        sdyv[s] = dyv;
-        sruk[s] = ruk;
-      }
-    }
-    // hist[s] = S_{t0 + s - 1}
-    {
-      float st[E];
-      load_row<E>(st, bnd + static_cast<long long>(c) * kDD + own);
-      for (int s = 0; s < n_s; ++s) {
-        store_row<E>(hist + s * kDD + own, st);
-        if (s + 1 < n_s) step(st, s);
-      }
-    }
-    __syncthreads();                        // the scalars are written
-    for (int s = n_s - 1; s >= 0; --s) {
-      const long long row = ((static_cast<long long>(b) * L + t0 + s) * H + h) * D;
-      float sp[E], dvp[E];
-      load_row<E>(sp, hist + s * kDD + own);
-      const float ri = sr[s][i], ki = sk[s][i], wi = sw[s][i], dyv = sdyv[s];
-      float a1 = 0.f, a2 = 0.f, a3 = 0.f;
+    for (int half = 0; half < 2; ++half) {
+      const int s = m0 + g + 8 * half;
+      if (c0 + s < L) {
+        T* d = dvb + row0 + s * HD + n0 + 2 * t;
+        const float ruk = sRuk[s];
 #pragma unroll
-      for (int j = 0; j < E; ++j) {
-        const float dyj = sdy[s][col0 + j];
-        a1 = fmaf(g[j], sp[j], a1);
-        a2 = fmaf(g[j], sv[s][col0 + j], a2);
-        a3 = fmaf(sp[j], dyj, a3);
-        dvp[j] = g[j] * ki;
-        g[j] = fmaf(wi, g[j], ri * dyj);
+        for (int j = 0; j < kNG; ++j) {
+          const int col = n0 + 8 * j + 2 * t;
+          store2(d + 8 * j, fmaf(ruk, sdy[s * kLd + col], dvacc[j][2 * half]),
+                 fmaf(ruk, sdy[s * kLd + col + 1], dvacc[j][2 * half + 1]));
+        }
       }
-      a1 = row_sum<kTPR>(a1);
-      a2 = row_sum<kTPR>(a2);
-      a3 = row_sum<kTPR>(a3);
-      if (q == 0) {
-        a.dlogw[row + i] = wi * a1;
-        from_f(dkb[row + i], fmaf(ui * ri, dyv, a2));
-        from_f(drb[row + i], fmaf(ui * ki, dyv, a3));
-        du = fmaf(ri * ki, dyv, du);
-      }
-      col_sums<E, kTPR>(dvp, lane, &part_dv[warp][s][0], col0);
-    }
-    __syncthreads();                        // the chunk's partials are written
-    for (int e = tid; e < n_s * D; e += kNT) {
-      const int s = e / D, j = e % D;
-      float sum = 0.f;
-#pragma unroll
-      for (int w = 0; w < kW; ++w) sum += part_dv[w][s][j];
-      from_f(dvb[((static_cast<long long>(b) * L + t0 + s) * H + h) * D + j],
-             fmaf(sruk[s], sdy[s][j], sum));
     }
   }
-  store_row<E>(a.ds0 + bh * kDD + own, g);
-  if (q == 0) a.du_part[bh * D + i] = du;
 }
 
 __global__ void wkv6_bwd_sum(const float* in, float* out, long long outer, int K,
@@ -962,36 +1417,57 @@ int wkv6_scan(const void* r, const void* k, const void* v, const void* logw,
 // their strides); dy (B, L, H, D) and dsT (B, H, D, D, or null for zeros)
 // float32 and contiguous.  Out, contiguous: dr, dk, dv (B, L, H, D) in
 // r's dtype, dlogw (B, L, H, D), du (H, D) and ds0 (B, H, D, D) float32.
-// du_part (B, H, D), bnd (B H, ceil(L / 8), D D) and hist (B H, 8, D D)
+// du_part (B, ceil(L / 32), H, D), sc and dsc (B H, ceil(L / 32), D, D)
 // are float32 scratch the caller allocates.
 int wkv6_scan_bwd(const void* r, const void* k, const void* v, const void* logw,
                   const void* u, const void* s0, const void* dy, const void* dsT,
                   void* dr, void* dk, void* dv, void* dlogw, void* du, void* ds0,
-                  void* du_part, void* bnd, void* hist, int B, int L, int H, int D,
+                  void* du_part, void* sc, void* dsc, int B, int L, int H, int D,
                   long long r_sb, long long r_sl, long long r_sh, long long k_sb,
                   long long k_sl, long long k_sh, long long v_sb, long long v_sl,
                   long long v_sh, long long w_sb, long long w_sl, long long w_sh,
                   int rkv_dtype, void* stream) {
   if (B <= 0 || H <= 0) return static_cast<int>(cudaSuccess);
   if (L <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  BwdArgs a{r, k, v, static_cast<const float*>(logw), static_cast<const float*>(u),
-            static_cast<const float*>(s0), static_cast<const float*>(dy),
-            static_cast<const float*>(dsT), dr, dk, dv, static_cast<float*>(dlogw),
-            static_cast<float*>(du_part), static_cast<float*>(ds0),
-            static_cast<float*>(bnd), static_cast<float*>(hist), L, H,
-            {{r_sb, r_sl, r_sh}, {k_sb, k_sl, k_sh}, {v_sb, v_sl, v_sh},
-             {w_sb, w_sl, w_sh}}};
+  const int n_chunks = (L + kBT - 1) / kBT;
+  const float* flw = static_cast<const float*>(logw);
+  const long long HD = static_cast<long long>(H) * D;
+  WalkArgs states{k, flw, v, static_cast<const float*>(s0), static_cast<float*>(sc), nullptr,
+                  L, H, {{k_sb, k_sl, k_sh}, {w_sb, w_sl, w_sh}, {v_sb, v_sl, v_sh}}};
+  WalkArgs grads{r, flw, dy, static_cast<const float*>(dsT), static_cast<float*>(dsc),
+                 static_cast<float*>(ds0), L, H,
+                 {{r_sb, r_sl, r_sh}, {w_sb, w_sl, w_sh}, {L * HD, HD, D}}};
+  ChunkArgs ca{r, k, v, flw, static_cast<const float*>(u), static_cast<const float*>(dy),
+               static_cast<const float*>(sc), static_cast<const float*>(dsc), dr, dk, dv,
+               static_cast<float*>(dlogw), static_cast<float*>(du_part), L, H,
+               {{r_sb, r_sl, r_sh}, {k_sb, k_sl, k_sh}, {v_sb, v_sl, v_sh},
+                {w_sb, w_sl, w_sh}}};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = with_kernels(rkv_dtype, D, [&](auto tx, auto d) {
     using T = decltype(tx);
     constexpr int kD = decltype(d)::value;
-    wkv6_bwd_chunks<T, kD><<<dim3(H, B), scan_bwd::kThreads, 0, st>>>(a);
+    constexpr int kWS = WalkLayout<T, T, kD>::kBytes, kWG = WalkLayout<T, float, kD>::kBytes;
+    constexpr int kC = ChunkLayout<T, kD>::kBytes;
+    cudaError_t e = cudaFuncSetAttribute(wkv6_bwd_walk<T, T, kD, false>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kWS);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(wkv6_bwd_walk<T, float, kD, true>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, kWG);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(wkv6_bwd_chunk<T, kD>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, kC);
+    if (e != cudaSuccess) return e;
+    wkv6_bwd_walk<T, T, kD, false><<<dim3(H, B), kThreads, kWS, st>>>(states);
+    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+    wkv6_bwd_walk<T, float, kD, true><<<dim3(H, B), kThreads, kWG, st>>>(grads);
+    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+    wkv6_bwd_chunk<T, kD><<<dim3(n_chunks, H, B), kThreads, kC, st>>>(ca);
     return cudaGetLastError();
   });
   if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(scan_bwd::launch_sum(wkv6_bwd_sum, a.du_part,
-                                               static_cast<float*>(du), 1, B,
-                                               static_cast<long long>(H) * D, st));
+  return static_cast<int>(scan_bwd::launch_sum(wkv6_bwd_sum, static_cast<float*>(du_part),
+                                               static_cast<float*>(du), 1, B * n_chunks, HD,
+                                               st));
 }
 
 }  // extern "C"

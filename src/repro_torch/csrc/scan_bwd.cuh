@@ -1,64 +1,21 @@
 // Pieces the scans' backward kernels share (mamba2_scan.cu, rwkv6_scan.cu).
 //
-// Both walk a recurrence over a (rows x cols) float32 state backward, one
-// CTA of kThreads threads per (batch, head), thread (row, q) holding row
-// `row` and the kE columns q kE .. q kE + kE - 1 of the state in
-// registers (kTPR = kThreads / rows threads a row, in neighbouring lanes).
-// A sum along a row is a shuffle among the row's lanes; a sum down the
-// columns is col_sums below, then the warps' partials through shared
-// memory.  Every sum is taken in a fixed order and none uses atomics, so
-// two calls on the same inputs give the same bytes.
+// tiles_mma: 16 x 8 tiles of a product of two operands read from shared
+// memory through accessors, at split TF32 (tf32_mma.cuh).  warp_sum and
+// lane_sums: sums over the warp's lanes by shuffles.  sum_mid: an
+// ordered sum over the middle index, which adds per-CTA parts (over
+// heads, batches or chunks) in index order.  Every sum is taken in a fixed order and none uses
+// atomics, so two calls on the same inputs give the same bytes.
 #pragma once
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "tf32_mma.cuh"
+
 namespace scan_bwd {
 
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-// steps a chunk: the states of one chunk are recomputed into a scratch
-// of kLc states a CTA (128 KB at a 64 x 64 state), which stays in L2
-constexpr int kLc = 8;
-
-// kE floats from src (16-byte aligned where kE % 4 == 0) into v, and back
-template <int kE>
-__device__ __forceinline__ void load_row(float (&v)[kE], const float* src) {
-  if constexpr (kE % 4 == 0) {
-#pragma unroll
-    for (int j = 0; j < kE; j += 4) {
-      const float4 f = *reinterpret_cast<const float4*>(src + j);
-      v[j] = f.x;
-      v[j + 1] = f.y;
-      v[j + 2] = f.z;
-      v[j + 3] = f.w;
-    }
-  } else {
-#pragma unroll
-    for (int j = 0; j < kE; ++j) v[j] = src[j];
-  }
-}
-
-template <int kE>
-__device__ __forceinline__ void store_row(float* dst, const float (&v)[kE]) {
-  if constexpr (kE % 4 == 0) {
-#pragma unroll
-    for (int j = 0; j < kE; j += 4)
-      *reinterpret_cast<float4*>(dst + j) = make_float4(v[j], v[j + 1], v[j + 2], v[j + 3]);
-  } else {
-#pragma unroll
-    for (int j = 0; j < kE; ++j) dst[j] = v[j];
-  }
-}
-
-// The sum of a value over the kTPR lanes of a row (every lane gets it).
-template <int kTPR>
-__device__ __forceinline__ float row_sum(float s) {
-#pragma unroll
-  for (int m = 1; m < kTPR; m <<= 1) s += __shfl_xor_sync(kFull, s, m);
-  return s;
-}
 
 __device__ __forceinline__ float warp_sum(float s) {
 #pragma unroll
@@ -66,50 +23,57 @@ __device__ __forceinline__ float warp_sum(float s) {
   return s;
 }
 
-// Values a lane holds after col_sums: each level over a lane bit halves
-// them while there are two or more.
-__host__ __device__ constexpr int col_count(int e, int tpr) {
-  for (int m = tpr; m < 32; m <<= 1)
-    if (e > 1) e /= 2;
-  return e;
-}
-
-// One level of col_sums over lane bit kM: the lane keeps the lower or the
-// upper half of its kCnt values (by its bit kM) and adds its partner's
-// copy of that half; once a lane holds one value, both partners add.
-template <int kCnt, int kM>
-__device__ __forceinline__ void col_level(float* v, int lane, int& base, int& dup) {
-  if constexpr (kM < 32) {
-    if constexpr (kCnt > 1) {
-      constexpr int kHalf = kCnt / 2;
-      const bool up = (lane & kM) != 0;
+// One level of lane_sums: the lane keeps the lower or the upper kH of
+// its 2 kH values (by its lane bit kH) and adds its partner's copy of them.
+template <int kH>
+__device__ __forceinline__ void halve(float* v, int lane) {
+  const bool up = (lane & kH) != 0;
 #pragma unroll
-      for (int i = 0; i < kHalf; ++i) {
-        const float send = up ? v[i] : v[i + kHalf];
-        const float keep = up ? v[i + kHalf] : v[i];
-        v[i] = keep + __shfl_xor_sync(kFull, send, kM);
-      }
-      if (up) base += kHalf;
-      col_level<kHalf, 2 * kM>(v, lane, base, dup);
-    } else {
-      v[0] += __shfl_xor_sync(kFull, v[0], kM);
-      dup |= kM;
-      col_level<1, 2 * kM>(v, lane, base, dup);
-    }
+  for (int i = 0; i < kH; ++i) {
+    const float send = up ? v[i] : v[i + kH];
+    const float keep = up ? v[i + kH] : v[i];
+    v[i] = keep + __shfl_xor_sync(kFull, send, kH);
   }
 }
 
-// v: this lane's kE values of columns c0 .. c0 + kE - 1, in a row of the
-// warp.  Sums each column over the warp's rows (the lanes that differ in
-// bits kTPR .. 16) and writes each sum once, to out[column].
-template <int kE, int kTPR>
-__device__ __forceinline__ void col_sums(float (&v)[kE], int lane, float* out, int c0) {
-  int base = 0, dup = 0;
-  col_level<kE, kTPR>(v, lane, base, dup);
-  if ((lane & dup) == 0) {
-    constexpr int kOut = col_count(kE, kTPR);
+// Lane l gets the sum over the warp's lanes of v[l % 16]: 16 shuffles for
+// 16 sums, where 16 warp_sums take 80.
+__device__ __forceinline__ float lane_sums(float (&v)[16], int lane) {
+  halve<8>(v, lane);
+  halve<4>(v, lane);
+  halve<2>(v, lane);
+  halve<1>(v, lane);
+  return v[0] + __shfl_xor_sync(kFull, v[0], 16);
+}
+
+// acc[j] (the 16 x 8 tile at rows m0 .., columns n0 + 8 j ..) += the sum
+// over k = k0 .. k1 - 1 (a multiple of 8 apart) of a(m, k) b(k, n), at
+// split TF32: each k-step of 8 in a fresh accumulator, then a rounded add.
+// The A fragment of a k-step is read and split once for the kNG tiles,
+// and their products run pass by pass (tf32::mma_pass), several in
+// flight.  a and b return float32 values; an operand exact in TF32
+// (bfloat16 values: kExactA, kExactB) skips its lo product.
+template <bool kExactA, bool kExactB, int kNG, typename FA, typename FB>
+__device__ __forceinline__ void tiles_mma(float (&acc)[kNG][4], const FA& a, const FB& b,
+                                          int m0, int n0, int k0, int k1, int g, int t) {
+#pragma unroll 2
+  for (int k = k0; k < k1; k += 8) {
+    const tf32::FragA fa = tf32::split_a(a(m0 + g, k + t), a(m0 + g + 8, k + t),
+                                         a(m0 + g, k + t + 4), a(m0 + g + 8, k + t + 4));
+    tf32::FragB fb[kNG];
 #pragma unroll
-    for (int i = 0; i < kOut; ++i) out[c0 + base + i] = v[i];
+    for (int j = 0; j < kNG; ++j)
+      fb[j] = tf32::split_b(b(k + t, n0 + 8 * j + g), b(k + t + 4, n0 + 8 * j + g));
+    float part[kNG][4] = {};
+#pragma unroll
+    for (int pass = 0; pass < 3; ++pass)
+#pragma unroll
+      for (int j = 0; j < kNG; ++j)
+        tf32::mma_pass<kExactB, kExactA>(part[j], fa, fb[j], pass);
+#pragma unroll
+    for (int j = 0; j < kNG; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] += part[j][e];
   }
 }
 

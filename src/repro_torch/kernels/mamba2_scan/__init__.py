@@ -1,2 +1,2 @@
 from .ops import ssd_scan, ssd_scan_bwd
-from .ref import ssd_scan_bwd_ref, ssd_scan_ref
+from .ref import ssd_chunked_bwd_ref, ssd_scan_bwd_ref, ssd_scan_ref

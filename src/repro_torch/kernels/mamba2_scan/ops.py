@@ -21,7 +21,7 @@ from .ref import ssd_scan_ref
 HEAD_DIMS = (32, 64, 128)             # the P the chunk kernel is built for
 STATE_DIMS = (16, 32, 64)             # and the N
 _X_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-BWD_CHUNK = 8                         # kLc in csrc/scan_bwd.cuh: steps a recomputed chunk
+KERNEL_CHUNK = 32                     # kLc in csrc/mamba2_scan.cu: steps a chunk
 
 
 def _check_kernel_inputs(name: str, x, dt, A, B, C, h0) -> None:
@@ -68,11 +68,13 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     """The backward kernel: (dx, ddt, dA, dB, dC, dh0) of ``ssd_scan``'s
     (y, hT), given y's gradient ``dy`` (Bz, L, H, P) and hT's ``dhT``
     (Bz, H, N, P; None: zeros), both float32.  dx comes in x's dtype, the
-    rest in float32.  It walks the recurrence backward on the CUDA cores
-    with the states recomputed from chunk starts, and sums dA, dB and dC
-    over b, t and the heads in a fixed order without atomics, so two calls
-    give the same bytes.  CUDA tensors only: the plain version is
-    ``ref.ssd_scan_bwd_ref``."""
+    rest in float32.  Chunk-parallel on the tensor cores: the states before
+    and the gradients after each chunk of 32 steps by two walks over the
+    chunks, then every chunk's gradients at once; dA, dB and dC are summed
+    over b, the chunks and the heads in a fixed order without atomics, so
+    two calls give the same bytes.  CUDA tensors only: the plain version
+    is ``ref.ssd_scan_bwd_ref`` (``ref.ssd_chunked_bwd_ref`` mirrors the
+    kernel's decomposition)."""
     _check_kernel_inputs("ssd_scan_bwd", x, dt, A, B, C, h0)
     Bz, L, H, P = x.shape
     N = B.shape[-1]
@@ -90,26 +92,26 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     f32 = dict(dtype=torch.float32, device=x.device)
     dx = torch.empty((Bz, L, H, P), dtype=x.dtype, device=x.device)
     ddt = torch.empty((Bz, L, H), **f32)
-    dA = torch.zeros((H,), **f32)
+    dA = torch.empty((H,), **f32)
     dB = torch.empty((Bz, L, N), **f32)
     dC = torch.empty((Bz, L, N), **f32)
     dh0 = torch.empty((Bz, H, N, P), **f32)
     if L == 0 or Bz == 0 or H == 0:
-        return dx, ddt, dA, dB.zero_(), dC.zero_(), (
+        return dx, ddt, dA.zero_(), dB.zero_(), dC.zero_(), (
             dh0.zero_() if dhT is None else dh0.copy_(dhT))
-    n_chunks = -(-L // BWD_CHUNK)
-    dA_part = torch.empty((H, Bz, L), **f32)
+    n_chunks = -(-L // KERNEL_CHUNK)
+    dA_part = torch.empty((H, Bz, n_chunks), **f32)
     dB_part = torch.empty((Bz, H, L, N), **f32)
     dC_part = torch.empty((Bz, H, L, N), **f32)
-    bnd = torch.empty((Bz * H, n_chunks, N * P), **f32)
-    hist = torch.empty((Bz * H, BWD_CHUNK, N * P), **f32)
+    hc = torch.empty((Bz * H, n_chunks, N, P), **f32)      # the state before each chunk
+    dhc = torch.empty((Bz * H, n_chunks, N, P), **f32)     # the gradient after it
     with torch.cuda.device(x.device):
         rc = library("mamba2_scan").ssd_scan_bwd(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
             h0.data_ptr(), dy.data_ptr(), None if dhT is None else dhT.data_ptr(),
             dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(), dC.data_ptr(),
             dh0.data_ptr(), dA_part.data_ptr(), dB_part.data_ptr(), dC_part.data_ptr(),
-            bnd.data_ptr(), hist.data_ptr(), Bz, L, H, P, N,
+            hc.data_ptr(), dhc.data_ptr(), Bz, L, H, P, N,
             x.stride(0), x.stride(1), x.stride(2), _X_DTYPES[x.dtype],
             torch.cuda.current_stream().cuda_stream)
     check(rc, "ssd_scan_bwd")

@@ -19,7 +19,7 @@ from .ref import wkv6_ref
 
 HEAD_DIMS = (16, 32, 64)               # the D the kernel is built for
 _RKV_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-BWD_CHUNK = 8                          # kLc in csrc/scan_bwd.cuh: steps a recomputed chunk
+BWD_CHUNK = 32                         # kBT in csrc/rwkv6_scan.cu: steps a chunk of the backward
 
 
 def _check_kernel_inputs(name: str, r, k, v, logw, u, s0) -> None:
@@ -71,10 +71,12 @@ def wkv6_scan_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """The backward kernel: (dr, dk, dv, dlogw, du, ds0) of ``wkv6``'s (y,
     sT), given y's gradient ``dy`` (B, L, H, D) and sT's ``dsT`` (B, H, D,
     D; None: zeros), both float32.  dr, dk and dv come in r's dtype, the
-    rest in float32.  It walks the recurrence backward on the CUDA cores
-    with the states recomputed from chunk starts, and sums du over b and t
-    in a fixed order without atomics, so two calls give the same bytes.
-    CUDA tensors only: the plain version is ``ref.wkv6_bwd_ref``."""
+    rest in float32.  Chunk-parallel: the states before and the gradients
+    after each chunk of 32 steps by two walks over the chunks on the tensor
+    cores, then every chunk's gradients at once; du is summed over b and
+    the chunks in a fixed order without atomics, so two calls give the same
+    bytes.  CUDA tensors only: the plain version is ``ref.wkv6_bwd_ref``
+    (``ref.wkv6_chunked_bwd_ref`` mirrors the kernel's decomposition)."""
     _check_kernel_inputs("wkv6_scan_bwd", r, k, v, logw, u, s0)
     B, L, H, D = r.shape
     dy = dy.float().contiguous()
@@ -92,20 +94,20 @@ def wkv6_scan_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dr, dk, dv = (torch.empty((B, L, H, D), dtype=r.dtype, device=r.device)
                   for _ in range(3))
     dlogw = torch.empty((B, L, H, D), **f32)
-    du = torch.zeros((H, D), **f32)
+    du = torch.empty((H, D), **f32)
     ds0 = torch.empty((B, H, D, D), **f32)
     if L == 0 or B == 0 or H == 0:
-        return dr, dk, dv, dlogw, du, (ds0.zero_() if dsT is None else ds0.copy_(dsT))
+        return dr, dk, dv, dlogw, du.zero_(), (ds0.zero_() if dsT is None else ds0.copy_(dsT))
     n_chunks = -(-L // BWD_CHUNK)
-    du_part = torch.empty((B, H, D), **f32)
-    bnd = torch.empty((B * H, n_chunks, D * D), **f32)
-    hist = torch.empty((B * H, BWD_CHUNK, D * D), **f32)
+    du_part = torch.empty((B, n_chunks, H, D), **f32)
+    sc = torch.empty((B * H, n_chunks, D, D), **f32)       # the state before each chunk
+    dsc = torch.empty((B * H, n_chunks, D, D), **f32)      # the gradient after it
     with torch.cuda.device(r.device):
         rc = library("rwkv6_scan").wkv6_scan_bwd(
             r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(), u.data_ptr(),
             s0.data_ptr(), dy.data_ptr(), None if dsT is None else dsT.data_ptr(),
             dr.data_ptr(), dk.data_ptr(), dv.data_ptr(), dlogw.data_ptr(), du.data_ptr(),
-            ds0.data_ptr(), du_part.data_ptr(), bnd.data_ptr(), hist.data_ptr(),
+            ds0.data_ptr(), du_part.data_ptr(), sc.data_ptr(), dsc.data_ptr(),
             B, L, H, D, *_strides(r, k, v, logw), _RKV_DTYPES[r.dtype],
             torch.cuda.current_stream().cuda_stream)
     check(rc, "wkv6_scan_bwd")

@@ -8,7 +8,9 @@ chunked scans (``repro.models.mamba2.ssd_chunked``,
 (``ssd_scan_bwd_ref``, ``wkv6_bwd_ref``, an explicit reverse pass) are
 held to autograd of the port's plain scans and to ``jax.grad`` of the
 JAX package's, in float32, at ragged lengths with a nonzero initial state
-and a cotangent on the final state.  The ``autograd.Function`` wiring runs
+and a cotangent on the final state; so are the CPU mirrors of the
+kernels' chunk-parallel decomposition (``ssd_chunked_bwd_ref``,
+``wkv6_chunked_bwd_ref``, chunks of 32 steps).  The ``autograd.Function`` wiring runs
 on the CPU with its launchers replaced by the plain versions.  Tests
 marked ``cuda`` hold each kernel to its oracle at every head and state
 dimension it is built for, and two calls bitwise equal; they skip without
@@ -24,10 +26,11 @@ import numpy as np  # noqa: E402
 
 from repro_torch.kernels import LAUNCHES, reset_launches  # noqa: E402
 from repro_torch.kernels.mamba2_scan import ops as ssd_ops  # noqa: E402
-from repro_torch.kernels.mamba2_scan import (ssd_scan, ssd_scan_bwd,  # noqa: E402
-                                             ssd_scan_bwd_ref, ssd_scan_ref)
+from repro_torch.kernels.mamba2_scan import (ssd_chunked_bwd_ref, ssd_scan,  # noqa: E402
+                                             ssd_scan_bwd, ssd_scan_bwd_ref, ssd_scan_ref)
 from repro_torch.kernels.rwkv6_scan import ops as wkv_ops  # noqa: E402
-from repro_torch.kernels.rwkv6_scan import (wkv6, wkv6_bwd_ref, wkv6_ref,  # noqa: E402
+from repro_torch.kernels.rwkv6_scan import (wkv6, wkv6_bwd_ref,  # noqa: E402
+                                            wkv6_chunked_bwd_ref, wkv6_ref,
                                             wkv6_scan_bwd)
 
 # The oracles against autograd of the chunked plain scans and against
@@ -171,6 +174,63 @@ def test_wkv6_bwd_ref_matches_jax(jx, B, L, H, D, chunk):
     assert_rel([g.numpy() for g in got], [np.asarray(w) for w in want], REL, WKV_NAMES)
 
 
+# -- the mirrors of the kernels' chunk-parallel decomposition ------------------------
+# Chunks of 32 steps, as the kernels': every SHAPES length is ragged
+# against it.  Held to the per-step oracles and to jax.grad within REL
+# (CPU readings: at most 4.2e-7 against the oracles).
+
+
+@pytest.mark.parametrize("Bz,L,H,P,N,chunk", SSD_SHAPES)
+def test_ssd_chunked_bwd_ref_matches_oracle(Bz, L, H, P, N, chunk):
+    *args, dy, dhT = _t(ssd_inputs(Bz, L, H, P, N, seed=1))
+    got = ssd_chunked_bwd_ref(*args, dy, dhT, chunk=32)
+    assert all(g.dtype == torch.float32 for g in got)
+    assert_rel(got, ssd_scan_bwd_ref(*args, dy, dhT), REL, SSD_NAMES)
+    # without dhT the last chunk's gradient starts from zeros
+    assert_rel(ssd_chunked_bwd_ref(*args, dy, chunk=32), ssd_scan_bwd_ref(*args, dy),
+               REL, SSD_NAMES)
+
+
+@pytest.mark.parametrize("Bz,L,H,P,N,chunk", SSD_SHAPES)
+def test_ssd_chunked_bwd_ref_matches_jax(jx, Bz, L, H, P, N, chunk):
+    jnp = jx.jnp
+    x, dt, A, B, C, h0, dy, dhT = ssd_inputs(Bz, L, H, P, N, seed=L + 1)
+    D = np.zeros(H, np.float32)
+
+    def f(*a):
+        y, hT = jx.mamba2.ssd_chunked(a[0], a[1], a[2], a[3], a[4], jnp.asarray(D), a[5],
+                                      chunk=chunk)
+        return jnp.sum(y * jnp.asarray(dy)) + jnp.sum(hT * jnp.asarray(dhT))
+    want = jx.jax.grad(f, argnums=tuple(range(6)))(
+        *(jnp.asarray(a) for a in (x, dt, A, B, C, h0)))
+    got = ssd_chunked_bwd_ref(*_t((x, dt, A, B, C, h0, dy, dhT)), chunk=32)
+    assert_rel([g.numpy() for g in got], [np.asarray(w) for w in want], REL, SSD_NAMES)
+
+
+@pytest.mark.parametrize("B,L,H,D,chunk", WKV_SHAPES)
+def test_wkv6_chunked_bwd_ref_matches_oracle(B, L, H, D, chunk):
+    *args, dy, dsT = _t(wkv_inputs(B, L, H, D, seed=1))
+    got = wkv6_chunked_bwd_ref(*args, dy, dsT, chunk=32)
+    assert all(g.dtype == torch.float32 for g in got)
+    assert_rel(got, wkv6_bwd_ref(*args, dy, dsT), REL, WKV_NAMES)
+    assert_rel(wkv6_chunked_bwd_ref(*args, dy, chunk=32), wkv6_bwd_ref(*args, dy),
+               REL, WKV_NAMES)
+
+
+@pytest.mark.parametrize("B,L,H,D,chunk", WKV_SHAPES)
+def test_wkv6_chunked_bwd_ref_matches_jax(jx, B, L, H, D, chunk):
+    jnp = jx.jnp
+    r, k, v, logw, u, s0, dy, dsT = wkv_inputs(B, L, H, D, seed=L + 1)
+
+    def f(*a):
+        y, sT = jx.rwkv6.wkv6_chunked(*a, chunk=chunk)
+        return jnp.sum(y * jnp.asarray(dy)) + jnp.sum(sT * jnp.asarray(dsT))
+    want = jx.jax.grad(f, argnums=tuple(range(6)))(
+        *(jnp.asarray(a) for a in (r, k, v, logw, u, s0)))
+    got = wkv6_chunked_bwd_ref(*_t((r, k, v, logw, u, s0, dy, dsT)), chunk=32)
+    assert_rel([g.numpy() for g in got], [np.asarray(w) for w in want], REL, WKV_NAMES)
+
+
 @pytest.mark.parametrize("chunk", [1, 3, 8, 64])
 def test_bwd_refs_do_not_depend_on_their_chunk(chunk):
     """The recompute chunk changes where states are kept, not the sums."""
@@ -192,20 +252,30 @@ def test_plain_scan_grads_stay_finite_past_exp_overflow():
     equal the oracles'.  Under such decay dA and dlogw sum terms of both
     signs far larger than themselves: the CPU read 7.1e-5 (dA) and 5.4e-5
     (dlogw) of their largest magnitudes, so STRONG_REL is about three
-    times that."""
+    times that.  The chunk-parallel mirrors (the kernels' arithmetic, 32
+    steps a chunk) take no difference of cumulative sums, so they are
+    held to the oracles within REL (CPU readings 1.2e-6 and 2.3e-7)."""
     x, dt, A, B, C, h0, dy, dhT = _t(ssd_inputs(1, 64, 2, 4, 4))
     A = torch.full_like(A, -100.0)              # A dt sums to about -500 a chunk
     want = autograd_grads(lambda *a: ssd_scan_ref(*a, chunk=64), (x, dt, A, B, C, h0),
                           (dy, dhT))
     assert all(bool(torch.isfinite(w).all()) for w in want)
-    assert_rel(ssd_scan_bwd_ref(x, dt, A, B, C, h0, dy, dhT), want, STRONG_REL, SSD_NAMES)
+    oracle = ssd_scan_bwd_ref(x, dt, A, B, C, h0, dy, dhT)
+    assert_rel(oracle, want, STRONG_REL, SSD_NAMES)
+    mirror = ssd_chunked_bwd_ref(x, dt, A, B, C, h0, dy, dhT, chunk=32)
+    assert all(bool(torch.isfinite(g).all()) for g in mirror)
+    assert_rel(mirror, oracle, REL, SSD_NAMES)
     r, k, v, logw, u, s0, dy, dsT = _t(wkv_inputs(1, 32, 2, 4))
     logw = torch.from_numpy(np.random.default_rng(1).uniform(-30, -5, logw.shape)
                             .astype(np.float32))
     want = autograd_grads(lambda *a: wkv6_ref(*a, chunk=32), (r, k, v, logw, u, s0),
                           (dy, dsT))
     assert all(bool(torch.isfinite(w).all()) for w in want)
-    assert_rel(wkv6_bwd_ref(r, k, v, logw, u, s0, dy, dsT), want, STRONG_REL, WKV_NAMES)
+    oracle = wkv6_bwd_ref(r, k, v, logw, u, s0, dy, dsT)
+    assert_rel(oracle, want, STRONG_REL, WKV_NAMES)
+    mirror = wkv6_chunked_bwd_ref(r, k, v, logw, u, s0, dy, dsT, chunk=32)
+    assert all(bool(torch.isfinite(g).all()) for g in mirror)
+    assert_rel(mirror, oracle, REL, WKV_NAMES)
 
 
 # -- the autograd wiring, with the launchers replaced by the plain versions ------------
@@ -299,21 +369,28 @@ def test_cpu_wrappers_take_the_plain_graph(plain_launchers):
 
 # -- the kernels on the card -----------------------------------------------------------
 
-# float32 kernel gradients against the oracle on the same inputs: a step
-# at a time both, in other orders of summation (the kernel's sums over a
-# row, over the warps and over b, t or the heads): within the forwards'
-# SSD_ATOL (5e-4) and wkv6's 1.2e-5 relative to each gradient's largest
-# magnitude.  bfloat16 dx / dr, dk, dv: rounded once from float32, four
-# bfloat16 ulps at their largest magnitude, as chip_smoke's gate.
+# float32 kernel gradients against the oracle on the same inputs: the
+# kernels chunk-parallel at split TF32, the oracle a step at a time, in
+# other orders of summation: within the forwards' SSD_ATOL (5e-4) and
+# wkv6's 1.2e-5 relative to each gradient's largest magnitude.  bfloat16
+# dx / dr, dk, dv: rounded once from float32, four bfloat16 ulps at their
+# largest magnitude, as chip_smoke's gate.  The last field: ROADMAP C4's
+# strong decay (A = -100; log decays in [-30, -5]), where the gradients
+# must also be finite.
 CUDA_REL = {"ssd": 5e-4, "wkv": 1.2e-5}
-CUDA_SSD_BWD = [(2, 37, 3, P, N, dt) for P in (32, 64, 128) for N in (16, 32, 64)
+CUDA_SSD_BWD = [(2, 37, 3, P, N, dt, False) for P in (32, 64, 128) for N in (16, 32, 64)
                 for dt in ("float32", "bfloat16")] + [
-    (4, 1024, 64, 64, 64, "bfloat16"),    # zamba2-1.2b training
-    (1, 1, 2, 64, 64, "float32"),        # one step
+    (4, 1024, 64, 64, 64, "bfloat16", False),    # zamba2-1.2b training
+    (1, 1, 2, 64, 64, "float32", False),        # one step
+    (1, 64, 2, 64, 16, "float32", True),        # ROADMAP C4
+    (1, 64, 2, 64, 16, "bfloat16", True),
 ]
-CUDA_WKV_BWD = [(2, 37, 3, D, dt) for D in (16, 32, 64) for dt in ("float32", "bfloat16")] + [
-    (4, 1024, 64, 64, "bfloat16"),        # rwkv6-7b training
-    (1, 1, 2, 32, "float32"),
+CUDA_WKV_BWD = [(2, 37, 3, D, dt, False) for D in (16, 32, 64)
+                for dt in ("float32", "bfloat16")] + [
+    (4, 1024, 64, 64, "bfloat16", False),        # rwkv6-7b training
+    (1, 1, 2, 32, "float32", False),
+    (1, 64, 2, 64, "float32", True),            # ROADMAP C4
+    (1, 64, 2, 64, "bfloat16", True),
 ]
 
 
@@ -330,32 +407,39 @@ def _cuda_close(got, want, low, names, rel):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("Bz,L,H,P,N,dt", CUDA_SSD_BWD)
-def test_cuda_ssd_scan_bwd_matches_ref(cuda, Bz, L, H, P, N, dt):
+@pytest.mark.parametrize("Bz,L,H,P,N,dt,strong", CUDA_SSD_BWD)
+def test_cuda_ssd_scan_bwd_matches_ref(cuda, Bz, L, H, P, N, dt, strong):
     x, dtv, A, B, C, h0, dy, dhT = (t.to(cuda) for t in _t(ssd_inputs(Bz, L, H, P, N)))
     x = x.to(getattr(torch, dt))
+    if strong:
+        A = torch.full_like(A, -100.0)
     reset_launches()
     got = ssd_scan_bwd(x, dtv, A, B, C, h0, dy, dhT)
     again = ssd_scan_bwd(x, dtv, A, B, C, h0, dy, dhT)
     assert LAUNCHES["ssd_scan_bwd"] == 2
     want = ssd_scan_bwd_ref(x, dtv, A, B, C, h0, dy, dhT)
     assert got[0].dtype == x.dtype
+    assert all(bool(torch.isfinite(g).all()) for g in got)
     _cuda_close(got, want, dt, SSD_NAMES, CUDA_REL["ssd"])
     for a, b in zip(got, again):
         assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,L,H,D,dt", CUDA_WKV_BWD)
-def test_cuda_wkv6_scan_bwd_matches_ref(cuda, B, L, H, D, dt):
+@pytest.mark.parametrize("B,L,H,D,dt,strong", CUDA_WKV_BWD)
+def test_cuda_wkv6_scan_bwd_matches_ref(cuda, B, L, H, D, dt, strong):
     r, k, v, logw, u, s0, dy, dsT = (t.to(cuda) for t in _t(wkv_inputs(B, L, H, D)))
     r, k, v = (t.to(getattr(torch, dt)) for t in (r, k, v))
+    if strong:
+        logw = torch.from_numpy(np.random.default_rng(1).uniform(-30, -5, logw.shape)
+                                .astype(np.float32)).to(cuda)
     reset_launches()
     got = wkv6_scan_bwd(r, k, v, logw, u, s0, dy, dsT)
     again = wkv6_scan_bwd(r, k, v, logw, u, s0, dy, dsT)
     assert LAUNCHES["wkv6_scan_bwd"] == 2
     want = wkv6_bwd_ref(r, k, v, logw, u, s0, dy, dsT)
     assert all(g.dtype == r.dtype for g in got[:3])
+    assert all(bool(torch.isfinite(g).all()) for g in got)
     _cuda_close(got, want, dt, WKV_NAMES, CUDA_REL["wkv"])
     for a, b in zip(got, again):
         assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
