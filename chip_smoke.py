@@ -56,12 +56,19 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    restore of its step-3 checkpoint (0 faults, bitwise the saved
    tensors), its losses held to an uninterrupted run's, and the step's
    profile, checkpoint bytes, stage, write and restore seconds and the
-   checkpoints' peak disk; then zamba2-1.2b (full depth) and rwkv6-7b
-   (8 of its 32 layers) train at full width: a float32 twin's step held
-   to the plain versions', the bf16 step finite (zamba2's within its
-   gate, and again with each half of B6 plain), one step with exactly a
-   B6 (B5) forward and backward per layer and B3's per shared-block
-   application, the s per step and a traced step;
+   checkpoints' peak disk; then the distributed path on the step-3
+   checkpoint: elastic restores onto {data: 2, 4, 8} and the 16 x 16
+   production mesh (``restore_for_mesh``, bitwise the saved parameters),
+   a ``Trainer`` step from the {data: 8} restore whose loss is bitwise the
+   restarted run's, ``ef_psum`` over its gradients on a one-rank NCCL
+   group (bitwise the local compression) and the olmo-1b x train_4k
+   dry-run cell (``launch.dryrun``, fake tensors); then zamba2-1.2b
+   (full depth) and rwkv6-7b (8 of its 32 layers) train at full width:
+   a float32 twin's step held to the plain versions', the bf16 step
+   finite (zamba2's within its gate, and again with each half of B6
+   plain), one step with exactly a B6 (B5) forward and backward per layer
+   and B3's per shared-block application, the s per step and a traced
+   step;
 9. the launch counts of each path (counts set to 0 just before it, read
    just after; the fleet path's from its children), the kernel table,
    and the last line ``{"ok": true, "device": {...}}``.
@@ -2114,6 +2121,173 @@ def counted_step(cfg, params, state, batch, opt, want: dict):
     return train_step, new_p, new_s
 
 
+# The distributed path inside the train path: the elastic restores' meshes
+# (data-parallel hosts; the last is the production 16 x 16 mesh) and the
+# one whose restore takes the train step; the dry-run cell it traces.
+DIST_MESHES = ({"data": 2}, {"data": 4}, {"data": 8}, None)
+DIST_STEP_MESH = 2
+DIST_DRYRUN = ("olmo-1b", "train_4k", "single")
+DIST_PARAMS = 1_176_764_416          # olmo-1b's parameters (its spec tree)
+
+
+def bitwise_equal(a, b) -> bool:
+    import torch
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    a, b = a.reshape(-1).contiguous(), b.reshape(-1).contiguous()
+    return torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+
+
+@contextlib.contextmanager
+def kept_gradients():
+    """Within the block, ``launch.steps.loss_and_grads`` (which the train
+    step calls) keeps its last gradients in the dict it yields."""
+    from repro_torch.launch import steps
+    kept: dict = {}
+    real = steps.loss_and_grads
+
+    def keep(*args, **kw):
+        loss, grads = real(*args, **kw)
+        kept["grads"] = grads
+        return loss, grads
+    steps.loss_and_grads = keep
+    try:
+        yield kept
+    finally:
+        steps.loss_and_grads = real
+
+
+def distributed_path(cfg, work: str, ckpt_dir: str, saved: dict, opt_state,
+                     first_loss: float, corpus: str, opt, loop, t_start: float) -> None:
+    """The distributed and launch tooling on full-width olmo-1b's step-3
+    checkpoint: (1) ``restore_for_mesh`` onto each of ``DIST_MESHES``,
+    bitwise the saved parameters; (2) one ``Trainer`` step from the
+    ``{data: 8}`` restore with the REAP-restored optimizer state and the
+    step-4 batch, its loss bitwise the restarted run's first and exactly
+    one B3 forward and backward per layer; (3) ``ef_psum`` over that
+    step's gradients on a one-rank NCCL group, bitwise the local
+    compression; (4) the ``DIST_DRYRUN`` dry-run cell.  Emits the
+    ``distributed_path`` line, then raises on any failure."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed import compress
+    from repro_torch.distributed.sharding import make_rules
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.launch.mesh import Mesh, make_production_mesh
+    from repro_torch.training import Trainer
+    from repro_torch.training.checkpoint import restore_for_mesh
+    from repro_torch.training.optimizer import tree_leaves, tree_map
+    t_phase = time.perf_counter()
+    base = os.path.join(ckpt_dir, f"ckpt_{TRAIN_CKPT_EVERY:08d}")
+    if not os.path.exists(base + ".mem"):
+        raise AssertionError(f"the step-{TRAIN_CKPT_EVERY} checkpoint is gone: "
+                             f"{sorted(os.listdir(ckpt_dir))}")
+    specs = steps.param_specs(cfg)
+    restores, failures, step_params = [], [], None
+    for i, shape in enumerate(DIST_MESHES):
+        mesh = Mesh(dict(shape)) if shape else make_production_mesh()
+        stats: dict = {}
+        t0 = time.perf_counter()
+        got = restore_for_mesh(base, specs, mesh, make_rules(mesh), device=DEVICE,
+                               stats=stats)
+        sync()
+        sec = time.perf_counter() - t0
+        unequal = [p for p, t in tree_leaves(got)
+                   if not bitwise_equal(t, saved[f"params/{p}"])]
+        restores.append({"mesh": dict(mesh.shape), "seconds": sec,
+                         "bytes_read": stats["bytes"], "shard_reads": stats["reads"],
+                         "n_unequal": len(unequal), "unequal": unequal[:5]})
+        if unequal:
+            failures.append(f"restore onto {dict(mesh.shape)}: unequal {unequal[:5]}")
+        if i == DIST_STEP_MESH:
+            step_params = got
+        del got
+    restored_params = sum(t.numel() for _, t in tree_leaves(step_params))
+
+    # (2) one step from the {data: 8} restore
+    class FromMesh(Trainer):
+        def _resume_or_init(self):
+            return step_params, opt_state, TRAIN_CKPT_EVERY
+    one = dataclasses.replace(loop, total_steps=TRAIN_CKPT_EVERY + 1,
+                              checkpoint_every=10 ** 9)
+    trainer = FromMesh(cfg, opt, one, corpus, os.path.join(work, "mesh_step"),
+                       device=DEVICE)
+    before = dict(LAUNCHES)
+    t0 = time.perf_counter()
+    with kept_gradients() as kept:
+        out = trainer.run()
+    sync()
+    step_s = time.perf_counter() - t0
+    step_launches = {k: LAUNCHES[k] - before.get(k, 0) for k in LAUNCHES}
+    want = {k: 0 for k in step_launches}
+    want.update(flash_attention=cfg.n_layers, flash_attention_bwd=cfg.n_layers)
+    loss = out["losses"][0] if out["losses"] else float("nan")
+    if step_launches != want:
+        failures.append(f"mesh step launches {step_launches}, want {want}")
+    if out["losses"] != [first_loss]:
+        failures.append(f"mesh step losses {out['losses']}, want [{first_loss}]")
+    del trainer, step_params
+    grads = kept.pop("grads")
+
+    # (3) ef_psum on a one-rank NCCL group against the local compression
+    errors = tree_map(lambda g: torch.zeros(g.shape, dtype=torch.float32,
+                                            device=g.device), grads)
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", store=dist.FileStore(os.path.join(work, "nccl_store"), 1),
+                            rank=0, world_size=1)
+    try:
+        backend = dist.get_backend()
+        mean, new_err = compress.ef_psum(grads, errors)
+        sync()
+    finally:
+        dist.destroy_process_group()
+    psum_s = time.perf_counter() - t0
+    qs, scales, local_err = compress.ef_compress_tree(grads, errors)
+    local = dict(tree_leaves(compress.decompress_tree(qs, scales)))
+    local_err = dict(tree_leaves(local_err))
+    new_err = dict(tree_leaves(new_err))
+    psum_unequal = [p for p, t in tree_leaves(mean)
+                    if not (bitwise_equal(t, local[p]) and bitwise_equal(new_err[p], local_err[p]))]
+    n_grad = sum(t.numel() for _, t in tree_leaves(grads))
+    n_leaves = len(new_err)
+    if psum_unequal:
+        failures.append(f"ef_psum differs from the local compression: {psum_unequal[:5]}")
+    del grads, errors, mean, new_err, qs, scales, local, local_err
+    torch.cuda.empty_cache()
+
+    # (4) the dry-run cell, traced on fake CPU tensors
+    r = dryrun.run_cell(*DIST_DRYRUN, os.path.join(work, "dryrun"))
+    if r["status"] != "ok":
+        raise AssertionError(f"dry run {DIST_DRYRUN}: {r.get('traceback')}")
+    if r["params_total"] != DIST_PARAMS:
+        failures.append(f"dry run params_total {r['params_total']}, want {DIST_PARAMS}")
+    emit({"phase": "train_path", "step": "distributed_path",
+          "t": time.perf_counter() - t_start, "seconds": time.perf_counter() - t_phase,
+          "checkpoint": os.path.basename(base), "restored_params": restored_params,
+          "restores": restores,
+          "mesh_step": {"mesh": dict(DIST_MESHES[DIST_STEP_MESH]), "seconds": step_s,
+                        "loss": loss, "restarted_first_loss": first_loss,
+                        "loss_bitwise": out["losses"] == [first_loss],
+                        "launches": step_launches},
+          "ef_psum": {"backend": backend, "world_size": 1, "leaves": n_leaves,
+                      "grad_elements": n_grad, "seconds": psum_s,
+                      "n_unequal": len(psum_unequal), "unequal": psum_unequal[:5]},
+          "dryrun": {"cell": list(DIST_DRYRUN), "trace_s": r["trace_s"],
+                     "params_total": r["params_total"],
+                     "peak_bytes_per_device": r["peak_bytes_per_device"],
+                     "fits_hbm": r["fits_hbm"],
+                     "dot_flops_traced": r["traced"]["dot_flops"],
+                     "microbatches": r["meta"]["microbatches"],
+                     "flops_per_device": r["roofline"]["flops_per_device"],
+                     "bottleneck": r["roofline"]["bottleneck"],
+                     "step_s": r["roofline"]["step_s"]}})
+    if failures:
+        raise AssertionError("distributed path: " + "; ".join(failures))
+
+
 def phase_train_path(t_start: float) -> dict:
     """Full-width, full-depth olmo-1b training through ``launch.steps`` and
     ``training.Trainer``: (1) one step's loss and gradients through the
@@ -2124,7 +2298,8 @@ def phase_train_path(t_start: float) -> dict:
     ``TRAIN_CKPT_EVERY`` steps), restarted by REAP restore of the step-3
     checkpoint (0 faults, bitwise the saved tensors) to step
     ``TRAIN_STEPS``, against an uninterrupted run that saves nothing;
-    (4) the times, the checkpoint's bytes and the directory's peak disk.
+    (4) ``distributed_path`` on the step-3 checkpoint; (5) the times, the
+    checkpoint's bytes and the directory's peak disk.
     Returns the launches of the counted window (reset just before the
     first step, read after the last run)."""
     import dataclasses
@@ -2211,6 +2386,9 @@ def phase_train_path(t_start: float) -> dict:
                    if got[p].dtype != t.dtype or not torch.equal(
                        got[p].view(torch.uint8) if got[p].dim() else got[p],
                        t.view(torch.uint8) if t.dim() else t)]
+        # (4) the distributed and launch tooling on the step-3 checkpoint
+        distributed_path(cfg, work, ckpt_dir, want_saved, ro, restarted["losses"][0],
+                         corpus, opt, loop, t_start)
         del second.restored, rp, ro, got, want_saved, saved
         torch.cuda.empty_cache()
         nockpt = dataclasses.replace(loop, checkpoint_every=10 ** 9)
@@ -2244,14 +2422,16 @@ def phase_train_path(t_start: float) -> dict:
                 loss_err > TRAIN_RESTART_RTOL:
             raise AssertionError(f"restarted losses {restarted['losses']} vs "
                                  f"uninterrupted {after}")
-        n_steps = 1 + TRAIN_PREEMPT_AT + (TRAIN_STEPS - TRAIN_CKPT_EVERY) + TRAIN_STEPS
+        # the counted step, the preempted and restarted runs, the step from
+        # the elastic restore, and the uninterrupted run
+        n_steps = 1 + TRAIN_PREEMPT_AT + (TRAIN_STEPS - TRAIN_CKPT_EVERY) + 1 + TRAIN_STEPS
         want = {k: 0 for k in launches}
         want.update(flash_attention=cfg.n_layers * n_steps,
                     flash_attention_bwd=cfg.n_layers * n_steps)
         if launches != want:
             raise AssertionError(f"train path launches {launches}, want {want}")
 
-        # (4) one step traced (outside the count)
+        # (5) one step traced (outside the count)
         state = opt_lib.init_state(params, opt)
         profile = profile_forward(
             lambda: train_step(params, state, batch), iters=2,

@@ -105,7 +105,8 @@ def loss_and_grads(cfg: ModelConfig, params: dict, batch: dict, *,
 def build_train_step(cfg: ModelConfig, opt: opt_lib.OptConfig, *,
                      remat: bool = True, remat_policy=None,
                      grad_dtype: torch.dtype = torch.float32, microbatches: int = 1,
-                     accum_dtype: torch.dtype = torch.float32, plain: bool = False):
+                     accum_dtype: torch.dtype = torch.float32, plain: bool = False,
+                     grad_shardings=None):
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)`` with ``loss``, ``grad_norm`` and ``lr`` in ``metrics``; the
     params and state returned are new tensors.
@@ -115,8 +116,10 @@ def build_train_step(cfg: ModelConfig, opt: opt_lib.OptConfig, *,
     divides loss and gradients by the count (gradients to float32), as the
     JAX package's ``scan`` does.  ``grad_dtype`` other than float32 casts
     the gradients before the update.  ``plain`` runs the kernels' plain
-    versions.  The JAX package's ``grad_shardings`` is a no-op on one card
-    (ROADMAP A10)."""
+    versions.  ``grad_shardings`` (a params-shaped tree of
+    ``nn.spec.Sharding``, as the JAX package takes it to pin the
+    accumulator to the parameters' layout) is accepted and does nothing:
+    one process holds every gradient whole."""
     def grads_of(params, batch):
         return loss_and_grads(cfg, params, batch, remat=remat,
                               remat_policy=remat_policy, plain=plain)

@@ -3,8 +3,10 @@
 Models describe their parameters as a nested-dict tree of
 :class:`TensorSpec` leaves (shape, dtype name, logical axis names, init
 law).  The tree drives the snapshot layout (``core.snapshot``), the fault
-order (``core.executor``) and :func:`host_initialize`, which writes the
-snapshot's bytes.  The layout, the order and the bytes are the JAX
+order (``core.executor``), :func:`host_initialize`, which writes the
+snapshot's bytes, and the partition rules (:func:`partition_specs`,
+:func:`shardings`, :func:`shard_shape`) that the dry run and the elastic
+restore read.  The layout, the order and the bytes are the JAX
 package's, so a snapshot built by either package is the same file.
 
 Dtypes are names (``"bfloat16"``, ``"float32"``, ...).  NumPy has no
@@ -37,6 +39,12 @@ __all__ = [
     "to_torch",
     "bf16_bits",
     "bf16_bits_to_f32",
+    "PartitionSpec",
+    "Sharding",
+    "partition_specs",
+    "shardings",
+    "shard_shape",
+    "shard_bytes",
 ]
 
 #: leaves drawn at once by :func:`host_initialize`; the largest leaf of
@@ -225,3 +233,92 @@ def stream_initialize(tree, seed: int = 0, device: Any = "cpu",
                   for path, s in sorted(leaves, key=lambda ps: -ps[1].size)]:
             f.result()
     return map_leaves(lambda p, _: out[p], tree)
+
+
+# ---------------------------------------------------------------------------
+# Partition rules
+# ---------------------------------------------------------------------------
+
+
+class PartitionSpec(tuple):
+    """One entry per leading dimension: ``None`` (replicated), a mesh axis
+    name, or a tuple of them (``_partition_spec`` drops trailing ``None``s).
+    A tuple, as
+    ``jax.sharding.PartitionSpec`` is, so ``p[0] == ("pod", "data")``
+    reads the same."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, entries)
+
+    def __repr__(self) -> str:
+        return f"PartitionSpec{tuple.__repr__(self)}"
+
+
+@dataclasses.dataclass(frozen=True)
+class Sharding:
+    """A leaf's layout over a mesh: the record that stands where the JAX
+    package has ``NamedSharding`` (one process places nothing)."""
+    mesh: Any
+    spec: PartitionSpec
+
+
+def _partition_spec(s: TensorSpec, rules: dict[str, Any],
+                    mesh=None) -> PartitionSpec:
+    """Logical axes -> PartitionSpec under ``rules``.
+
+    Never reuses a mesh axis within one tensor, and (when ``mesh`` is given)
+    only assigns the longest prefix of mesh axes whose product divides the
+    dimension (kv_heads=8 cannot shard a 16-way model axis and falls back
+    to replication)."""
+    used: set[str] = set()
+    entries = []
+    for dim, name in zip(s.shape, s.axes):
+        mesh_axes = rules.get(name) if name is not None else None
+        if mesh_axes is None:
+            entries.append(None)
+            continue
+        if isinstance(mesh_axes, str):
+            mesh_axes = (mesh_axes,)
+        picked = [a for a in mesh_axes if a not in used]
+        if mesh is not None:
+            while picked:
+                if dim % math.prod(mesh.shape[a] for a in picked) == 0:
+                    break
+                picked = picked[:-1]
+        if not picked:
+            entries.append(None)
+            continue
+        used.update(picked)
+        entries.append(tuple(picked) if len(picked) > 1 else picked[0])
+    while entries and entries[-1] is None:
+        entries.pop()
+    return PartitionSpec(*entries)
+
+
+def partition_specs(tree, rules: dict[str, Any], mesh=None):
+    return map_leaves(lambda _, s: _partition_spec(s, rules, mesh), tree)
+
+
+def shardings(tree, mesh, rules: dict[str, Any]):
+    return map_leaves(
+        lambda _, s: Sharding(mesh, _partition_spec(s, rules, mesh)), tree)
+
+
+def _entry_axes(entry) -> tuple[str, ...]:
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def shard_shape(s: TensorSpec, spec: PartitionSpec, mesh) -> tuple[int, ...]:
+    """The shape of one device's shard of ``s`` laid out by ``spec``: each
+    dimension divided by the product of its mesh axes."""
+    shape = list(s.shape)
+    for i, entry in enumerate(spec):
+        shape[i] //= math.prod(mesh.shape[a] for a in _entry_axes(entry))
+    return tuple(shape)
+
+
+def shard_bytes(s: TensorSpec, spec: PartitionSpec, mesh) -> int:
+    """Bytes of one device's shard of ``s`` under ``spec``."""
+    return math.prod(shard_shape(s, spec, mesh)) * itemsize(s.dtype)

@@ -15,13 +15,15 @@ for byte for the same values.  Restore paths:
     is ``InstanceArena.install_block``'s one vectorised scatter, where the
     JAX package loops ``install_span`` page by page: the same bytes land.
 
-Restored tensors go to the template's device and dtype.  The JAX
-package's ``restore_for_mesh`` reads through its sharding module and
-comes with the distributed tooling (ROADMAP A10).
+Restored tensors go to the template's device and dtype.  An elastic
+restore (:func:`restore_for_mesh`) assembles each parameter from the row
+ranges that the data-parallel hosts of another mesh would each read
+(:func:`read_shard`).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 import threading
 import time
@@ -31,6 +33,8 @@ import numpy as np
 import torch
 
 from ..core.arena import PAGE, ArenaLayout, GuestMemoryFile, InstanceArena, PageSource
+from ..device import device_of
+from ..nn import spec as nnspec
 from ..nn.spec import storage_dtype, to_torch
 from .optimizer import tree_leaves
 
@@ -218,3 +222,53 @@ def read_shard(base: str, path: str, lo: int, hi: int) -> torch.Tensor:
         src.close()
     arr = np.frombuffer(raw, dtype=storage_dtype(e.dtype)).reshape((hi - lo,) + e.shape[1:])
     return to_torch(arr.copy(), e.dtype)
+
+
+def _read_whole(gm: GuestMemoryFile, path: str) -> torch.Tensor:
+    e = gm.layout.entries[path]
+    src = PageSource(gm.mem_path, o_direct=False)
+    try:
+        raw = src.read_span(e.offset, e.nbytes)
+    finally:
+        src.close()
+    arr = np.frombuffer(raw, dtype=storage_dtype(e.dtype)).reshape(e.shape)
+    return to_torch(arr.copy(), e.dtype)
+
+
+def restore_for_mesh(base: str, spec_tree, mesh, rules, device: Any = "cuda",
+                     stats: dict | None = None) -> Any:
+    """Elastic re-shard restore: assemble each parameter from per-shard row
+    reads for the (possibly different) target mesh -- one shard per
+    data-parallel position (``sharding.data_axes``), the last taking the
+    remainder rows; a scalar, or a tensor of fewer rows than shards, is
+    read whole.  One process holds every shard, so the parts are joined
+    and the tree of tensors goes to ``device`` (the card unless the caller
+    asks for the CPU).  ``rules`` is unused, as in the JAX package: the
+    rows follow the mesh's data axes.  ``stats``, if given, gets
+    ``bytes`` (read) and ``reads`` (row ranges and whole reads)."""
+    from ..distributed.sharding import data_axes
+    dev = device_of(device)
+    n_shards = max(1, math.prod(mesh.shape[a] for a in data_axes(mesh)))
+    gm = GuestMemoryFile.open(base)
+    counts = {"bytes": 0, "reads": 0}
+
+    def one(path, s: nnspec.TensorSpec):
+        full = f"params/{path}"
+        rows = s.shape[0] if s.shape else 1
+        if not s.shape or rows < n_shards:
+            t = _read_whole(gm, full)
+            counts["reads"] += 1
+        else:
+            per = rows // n_shards
+            parts = [read_shard(base, full, i * per,
+                                rows if i == n_shards - 1 else (i + 1) * per)
+                     for i in range(n_shards)]
+            counts["reads"] += n_shards
+            t = torch.cat(parts, dim=0)
+        counts["bytes"] += t.numel() * t.element_size()
+        return t.to(dev)
+
+    out = nnspec.map_leaves(one, spec_tree)
+    if stats is not None:
+        stats.update(counts)
+    return out

@@ -122,7 +122,11 @@ for n in names:
     importlib.import_module(n)
 assert {"repro_torch.training.optimizer", "repro_torch.training.checkpoint",
         "repro_torch.training.train_loop", "repro_torch.data.pipeline",
-        "repro_torch.launch.train"} <= set(names), names
+        "repro_torch.launch.train", "repro_torch.launch.mesh",
+        "repro_torch.launch.dryrun", "repro_torch.distributed.sharding",
+        "repro_torch.distributed.compress", "repro_torch.distributed.step_analysis",
+        "repro_torch.analysis.lint", "repro_torch.analysis.lockgraph",
+        "repro_torch.analysis.sanitizer"} <= set(names), names
 from repro_torch.configs import SMOKES
 from repro_torch.core import build_instance_snapshot
 d = tempfile.mkdtemp()
