@@ -32,22 +32,31 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    one ``StatsSnapshotter`` sample, the spawn time, and the host's peak
    memory (the resident sets of parent and children summed, and the
    host's memory in use, which counts a shared page once);
+5b. examples: ``examples/torch_quickstart.py`` (qwen2-7b SMOKE: record,
+   warm, REAP cold), ``torch_serve_fleet.py`` (all ten SMOKE functions
+   recorded, scaled to zero, and a 3 s Poisson trace replayed through
+   ``Router`` with 8 slots, reactive and under ``PrewarmPolicy``) and
+   ``torch_train_fault_tolerant.py`` (olmo-1b SMOKE, 200 steps preempted
+   at 100 and restarted by REAP restore), each through its ``run`` on
+   the card, in its own store, held to its own exit conditions and to
+   exact launch counts;
 6. MoE invocation: deepseek-moe-16b at full width and 3 layers, its
    snapshot built, then one invocation per request on a fresh arena, the
    executor routing each group on the true activations and faulting only
    the routed experts' pages (held to the routed ids, to each other and
    to a warm forward);
 7. decode paths through ``launch.steps``: full-width olmo-1b (bfloat16
-   and int8 KV cache), zamba2-1.2b, rwkv6-7b and deepseek-moe-16b
-   (bfloat16, and a float32 twin of each), pixtral-12b (8 of its 40
-   layers, 1024 patch embeddings before the tokens) and
-   seamless-m4t-medium (128 frames through the bidirectional encoder)
-   prefill 4 x 1024 tokens and decode greedily, each step held to a
-   teacher-forced forward and to a run through the plain versions (the
-   bfloat16 zamba2, rwkv6 and deepseek runs excepted: see ``F32_ATOL``;
-   the MoE runs route as their kernel run did, ``RouteLog``), and each
-   kernel call of a prefill and a decode step held to its plain version
-   on the model's own inputs;
+   and int8 KV cache), qwen2-7b, zamba2-1.2b, rwkv6-7b and
+   deepseek-moe-16b (8 of its 28 layers) (bfloat16, and a float32 twin
+   of each), pixtral-12b (8 of its 40 layers, 1024 patch embeddings
+   before the tokens) and seamless-m4t-medium (128 frames through the
+   bidirectional encoder) prefill 4 x 1024 tokens and decode greedily,
+   each step held to a teacher-forced forward and to a run through the
+   plain versions (the bfloat16 zamba2, rwkv6 and deepseek runs excepted,
+   and qwen2-7b's held to the forward only, its prefill to plain at 2
+   and 7 layers: see ``F32_ATOL``; the MoE runs route as their kernel
+   run did, ``RouteLog``), and each kernel call of a prefill and a
+   decode step held to its plain version on the model's own inputs;
 8. train path: full-width olmo-1b (bf16, AdamW, 4 x 1024 tokens of the
    ``launch.train`` corpus): one step's loss and gradients through the
    kernels held to the plain versions' (and a float32 twin of its first
@@ -102,10 +111,15 @@ FLASH_CASES = [                      # (B, S, H, KV, D, dtype, causal)
     (4, 1024, 16, 16, 128, "bfloat16", True),   # olmo-1b prefill: the kernel table's row
     (4, 1056, 16, 16, 128, "bfloat16", True),   # olmo-1b teacher-forced forward (ragged)
     (4, 1024, 32, 32, 64, "bfloat16", True),    # zamba2-1.2b prefill
+    (4, 1024, 28, 4, 128, "bfloat16", True),    # qwen2-7b prefill: GQA with G = 7
     (4, 128, 16, 16, 64, "bfloat16", False),    # seamless-m4t-medium's encoder
     (4, 128, 16, 16, 64, "float32", False),     # (bidirectional), bf16 and f32
 ]
 FLASH_ROW = (4, 1024, 16, 16, 128)      # B3's row of the kernel table
+# Cases also held within KERNEL_ULPS bfloat16 ulps of the plain version at
+# its largest magnitude (FLASH_ATOL is absolute): the first launches at a
+# group size that is not a power of two
+FLASH_ULP_GATED = {(4, 1024, 28, 4, 128, "bfloat16", True)}
 FLASH_ATOL = {"float32": 2e-5, "bfloat16": 2e-2}
 FLASH_BWD_CASES = [                  # (B, S, H, KV, D, dtype, causal)
     (4, 1024, 16, 16, 128, "bfloat16", True),   # olmo-1b training: the table's row
@@ -135,6 +149,7 @@ DECODE_CASES = [                     # (B, S, H, KV, D, dtype, kv_len or None = 
     (3, 512, 16, 2, 80, "float32", None),
     (4, 1056, 16, 16, 128, "bfloat16", 1056),   # olmo-1b, the last decode step
     (4, 1056, 32, 32, 64, "bfloat16", 1056),    # zamba2-1.2b, the last decode step
+    (4, 1056, 28, 4, 128, "bfloat16", 1056),    # qwen2-7b, the last decode step (G = 7)
     (4, 132, 16, 16, 64, "bfloat16", 128),      # seamless-m4t-medium's cross cache
 ]
 SSD_CASES = [                        # (Bz, L, H, P, N, chunk, x dtype)
@@ -423,9 +438,14 @@ def check_flash(B: int, S: int, H: int, KV: int, D: int, dtype: str,
     n_ops = 4 * B * H * D * (S * (S + 1) // 2 if causal else S * S)
     b, by = bound_ms(n_bytes, n_ops, dtype)
     library_kernels, library_device_ms = device_profile(library)
+    ulp = bf16_ulp(ref.float()) if dtype == "bfloat16" else None
+    ulps = err / ulp if ulp else None
+    ok = err <= FLASH_ATOL[dtype] and (
+        (B, S, H, KV, D, dtype, causal) not in FLASH_ULP_GATED or ulps <= KERNEL_ULPS)
     return {"kernel": "flash_attention", "shape": [B, S, H, KV, D], "causal": causal,
             "dtype": dtype, "max_abs_err": err, "atol": FLASH_ATOL[dtype],
-            "ok": err <= FLASH_ATOL[dtype],
+            "max_abs_out": float(ref.float().abs().max()), "err_bf16_ulps": ulps,
+            "ok": ok,
             # outputs that differ from the plain version's at all (in bf16:
             # those whose rounding flipped)
             "differing_share": float((out != ref).float().mean()),
@@ -861,7 +881,8 @@ def phase_kernel_checks(ws_pages: int) -> dict:
         emit({"phase": "kernel_check", **res})
         if not res["ok"]:
             raise AssertionError(f"flash_attention {case}: max abs err "
-                                 f"{res['max_abs_err']} > {res['atol']}")
+                                 f"{res['max_abs_err']} > {res['atol']} (or "
+                                 f"{res['err_bf16_ulps']} > {KERNEL_ULPS} ulps)")
         if case[:5] == FLASH_ROW and case[6]:
             rows["flash_attention"] = res
     for case in FLASH_BWD_CASES:
@@ -1324,6 +1345,165 @@ def phase_fleet_path(cfg, device: str, store: str, batch: dict, main_res: dict,
     return launches
 
 
+# -- phase 5b: the examples ----------------------------------------------------
+
+# examples/torch_*.py, each at its run()'s defaults: the JAX examples' own
+# sizes (SMOKE configs, the quickstart's default function, the fleet's 3 s
+# trace), and 200 training steps preempted at 100
+EXAMPLE_TRAIN_STEPS = 200
+QUICK_FORWARDS = 4                   # deploy warm-up, record, warm, REAP cold
+
+
+def forward_launches(forwards: dict, groups: int = 0) -> dict:
+    """The launches of ``forwards`` ({SMOKE config: forwards run}) without
+    a cache and of ``groups`` group restores: B3 ``flash_per_pass``, B6 one
+    per Mamba layer and B5 one per RWKV layer each forward, B1 one per
+    group (its fused WS gather), and no other kernel; with each sum
+    written out."""
+    want, terms = {"gather_pages": groups}, {"gather_pages": f"{groups} groups"}
+    for kernel, per in (("flash_attention", flash_per_pass), ("ssd_scan", mamba_layers),
+                        ("wkv6_scan", rwkv_layers)):
+        parts = [(cfg.name, per(cfg), n) for cfg, n in forwards.items() if per(cfg)]
+        want[kernel] = sum(p * n for _, p, n in parts)
+        terms[kernel] = " + ".join(f"{p} x {n} ({name})" for name, p, n in parts) or "0"
+    for kernel in ("decode_attention", "scatter_pages", "flash_attention_bwd",
+                   "ssd_scan_bwd", "wkv6_scan_bwd"):
+        want[kernel] = 0
+    return {"want": want, "formula": terms}
+
+
+@contextlib.contextmanager
+def group_restores():
+    """Yields a list that gets [size, monitor mode] of each group restore
+    of more than one instance the serving layer makes while inside: one in
+    ``prefetch`` mode fuses its WS once (B1), one that records fuses
+    nothing."""
+    from repro_torch.serving import orchestrator
+    inner, groups = orchestrator.restore_group, []
+
+    def counted(insts, **kw):
+        out = inner(insts, **kw)
+        if len(insts) > 1:
+            groups.append([len(insts), insts[0].monitor.mode])
+        return out
+    orchestrator.restore_group = counted
+    try:
+        yield groups
+    finally:
+        orchestrator.restore_group = inner
+
+
+def phase_examples_path(t_start: float) -> dict:
+    """The port's three examples on the card, each through its ``run``:
+    ``torch_quickstart`` (qwen2-7b SMOKE: record, warm, REAP cold),
+    ``torch_serve_fleet`` (all ten SMOKE functions recorded, scaled to
+    zero, and the 3 s Poisson trace replayed through ``Router`` with 8
+    slots, reactive and under ``PrewarmPolicy``) and
+    ``torch_train_fault_tolerant`` (olmo-1b SMOKE, 200 steps preempted at
+    100, REAP restart, an uninterrupted run).  Gates: each example's own
+    exit condition; every function served on the card; each example's
+    launches exact (``forward_launches``: the forwards are the deploy
+    warm-ups plus one per served request, and B1 runs once per group
+    restore; training launches B3 forward and backward once per layer and
+    step).  Stores and work directories
+    under ``build/``, deleted after.  Returns the phase's launches."""
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.configs import ARCHS, SMOKES
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    sys.path.insert(0, os.path.join(ROOT, "examples"))
+    import torch_quickstart as quick
+    import torch_serve_fleet as fleet
+    import torch_train_fault_tolerant as train
+    smoke_of = {cfg.name: cfg for cfg in SMOKES.values()}
+    total: dict[str, int] = {}
+
+    def log(*args):
+        print(*args, file=sys.stderr, flush=True)
+
+    def taken() -> dict:
+        got = dict(LAUNCHES)
+        reset_launches()
+        for k, n in got.items():
+            total[k] = total.get(k, 0) + n
+        return got
+
+    def line(**kw):
+        emit({"phase": "examples_path", "t": time.perf_counter() - t_start, **kw})
+    work = tempfile.mkdtemp(prefix="examples_", dir=os.path.join(ROOT, "build"))
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        q = quick.run(store=os.path.join(work, "quick"), device=DEVICE)
+        seconds = time.perf_counter() - t0
+        got = taken()
+        want = forward_launches({smoke_of[q["function"]]: QUICK_FORWARDS})
+        same = torch.equal(q["record_logits"], q["reap_cold_logits"])
+        line(example="torch_quickstart", seconds=seconds, function=q["function"],
+             record=q["record"], warm=q["warm"], reap_cold=q["reap_cold"],
+             ws_pages=q["ws_pages"], reap_cold_eq_record=same,
+             launches=got, want_launches=want["want"], formula=want["formula"])
+        if not same or q["warm"]["n_faults"]:
+            raise AssertionError(f"torch_quickstart: REAP cold == record {same}, warm "
+                                 f"faults {q['warm']['n_faults']}")
+        if got != want["want"]:
+            raise AssertionError(f"torch_quickstart: launches {got}, want {want['want']}")
+
+        t0 = time.perf_counter()
+        with group_restores() as groups:
+            f = fleet.run(store=os.path.join(work, "fleet"), device=DEVICE, log=log)
+        seconds = time.perf_counter() - t0
+        got = taken()
+        forwards = {SMOKES[n]: 2 + f["reactive"]["served_by_function"].get(n, 0)
+                    + f["adaptive"]["served_by_function"].get(n, 0) for n in f["functions"]}
+        want = forward_launches(forwards, sum(m == "prefetch" for _, m in groups))
+        keys = ("arrivals", "served", "refused", "failed", "not_finite", "cold",
+                "cold_fraction", "e2e_p50_s", "e2e_p95_s", "queue_p95_s", "ws_cache_hits",
+                "prewarmed", "batched", "steady_state_cold", "steady_state_n",
+                "served_by_function")
+        line(example="torch_serve_fleet", seconds=seconds, record=f["record"],
+             **{k: {x: f[k][x] for x in keys} for k in ("reactive", "adaptive")},
+             ws_cache=f["ws_cache"], forwards={c.name: n for c, n in forwards.items()},
+             group_restores=groups, launches=got, want_launches=want["want"], formula=want["formula"])
+        bad = fleet.failures(f)
+        if sorted(f["record"]) != sorted(ARCHS) or bad:
+            raise AssertionError(f"torch_serve_fleet: served {sorted(f['record'])}; {bad}")
+        if got != want["want"]:
+            raise AssertionError(f"torch_serve_fleet: launches {got}, want {want['want']}")
+
+        t0 = time.perf_counter()
+        tr = train.run(steps=EXAMPLE_TRAIN_STEPS, workdir=os.path.join(work, "train"),
+                       device=DEVICE, log=log)
+        seconds = time.perf_counter() - t0
+        got = taken()
+        n_steps = len(tr["preempted"]) + len(tr["restarted"]) + len(tr["uninterrupted"])
+        layers = smoke_of[tr["function"]].n_layers
+        want = forward_launches({})["want"]
+        want.update(flash_attention=layers * n_steps, flash_attention_bwd=layers * n_steps)
+        rs = tr["restore_stats"]
+        line(example="torch_train_fault_tolerant", seconds=seconds, function=tr["function"],
+             steps=[len(tr["preempted"]), len(tr["restarted"]), len(tr["uninterrupted"])],
+             restarted_tail=tr["restarted"][-train.TAIL:],
+             uninterrupted_tail=tr["uninterrupted"][-train.TAIL:],
+             tail_rel_diff=tr["tail_rel_diff"], rtol=TRAIN_RESTART_RTOL,
+             restore={k: rs[k] for k in ("bytes", "io_s", "n_faults")},
+             first_loss=tr["uninterrupted"][0], last_loss=tr["uninterrupted"][-1],
+             launches=got, want_launches=want,
+             formula=f"{layers} layers x {n_steps} steps, forward and backward")
+        if (tr["tail_rel_diff"] > TRAIN_RESTART_RTOL or rs["n_faults"]
+                or len(tr["restarted"]) != EXAMPLE_TRAIN_STEPS // 2):
+            raise AssertionError(f"torch_train_fault_tolerant: tail {tr['tail_rel_diff']} "
+                                 f"(rtol {TRAIN_RESTART_RTOL}), {rs['n_faults']} faults")
+        if got != want:
+            raise AssertionError(f"torch_train_fault_tolerant: launches {got}, want {want}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return total
+
+
 # -- phase 7: decode paths ---------------------------------------------------
 
 DEVICE = "cuda"
@@ -1365,8 +1545,20 @@ INT8_REL = 0.04
 # 114,048 on the H100), so it too is held through a float32 twin, of its
 # first 8 layers, routed as its kernel run was: within 2e-4 of the plain
 # run, ten times its H100 reading (1.63e-5), rounded up.
+# qwen2-7b in bfloat16 differs from its plain run by more than PLAIN_ULPS
+# at full depth, though each kernel call on its inputs is within half an
+# ulp of plain: the differences add up layer by layer.  Its prefill's
+# logits through the kernels against plain read 1.1, 2.8, 4.8 and 7.1
+# ulps over its first 2, 7, 14 and 28 layers on the H100, and the 28-layer
+# decode run 7.25 ulps against plain and 7.75 against the teacher-forced
+# forward.  So its 28-layer bfloat16 run is held to the teacher-forced
+# forward only; its prefill through the kernels is held to plain within
+# PLAIN_ULPS over its first DEPTH_SWEEP layers (``depth_sweep``); and its
+# float32 twin runs at full depth within the MoE twin's 2e-4 (the same
+# attention and MLP blocks; set before its first reading, 1.09e-4 against
+# the forward and 8.4e-5 against plain on the H100).
 F32_ATOL = {"hybrid": 0.01, "rwkv": 1e-3,       # zamba2-1.2b, rwkv6-7b
-            "moe": 2e-4}                        # deepseek-moe-16b
+            "moe": 2e-4, "dense": 2e-4}         # deepseek-moe-16b, qwen2-7b
 # Kernel calls held to their plain versions on the model's inputs:
 # bfloat16 outputs within KERNEL_ULPS ulps at their largest magnitude,
 # float32 ones within the given tolerance, scaled by that magnitude where
@@ -1643,26 +1835,15 @@ def routing(log: RouteLog | None, mode: str, label: str):
             yield stats
 
 
-def moe_first_layers(cfg, params: dict, n: int):
-    """An MoE config cut to its first ``n`` layers, and views of ``params``'
-    stacks for them (its first dense layers stay, its groups are cut)."""
-    import dataclasses
-    from repro_torch.models import moe
-    cut = dataclasses.replace(cfg, n_layers=n)
-    g = moe.n_groups(cut)
-
-    def head(tree):
-        return {k: head(v) for k, v in tree.items()} if isinstance(tree, dict) else tree[:g]
-    return cut, {**params, "groups": head(params["groups"])}
-
-
 def run_decode_path(label: str, cfg, params, n_steps: int, t_start: float, *,
-                    float32: bool = False, held: bool = True) -> dict:
+                    float32: bool = False,
+                    held: tuple = ("teacher", "plain")) -> dict:
     """One decode path: the kernel run (its launches counted), the teacher-
     forced forward, and the run through the plain versions on the same
     tokens; an MoE config's forward and plain run route as the kernel run
     did (``RouteLog``).  ``float32`` casts params and cache to float32;
-    ``held`` holds the logits to the forward and the plain run.  Raises on
+    ``held`` names the runs the logits are held to (the teacher-forced
+    forward, the plain run).  Raises on
     any failed check; returns the emitted line."""
     import torch
     from repro_torch.kernels import LAUNCHES, reset_launches
@@ -1731,8 +1912,10 @@ def run_decode_path(label: str, cfg, params, n_steps: int, t_start: float, *,
     plain_atol = PLAIN_ULPS * bf16_ulp(plain["logits"])
     if float32:
         atol = plain_atol = F32_ATOL[cfg.family]
-    if not held:
-        atol = plain_atol = None
+    if "teacher" not in held:
+        atol = None
+    if "plain" not in held:
+        plain_atol = None
     routes = None if log is None else log.summary()
     # capacity differs between the prefill, the steps and the forward (4096,
     # 4 and 4224 tokens at full width), so the forward can drop what the
@@ -1773,26 +1956,67 @@ def run_decode_path(label: str, cfg, params, n_steps: int, t_start: float, *,
 
 # The depth cuts, each listed on its path's line.  The VLM differs from
 # the dense family only in its trunk (patch embeddings before the tokens),
-# so 8 of pixtral-12b's 40 layers run its path at full width; the float32
-# twin of deepseek-moe-16b takes its first 8 layers (18.5 GB beside the
-# 32.7 GB of bfloat16 params on the card).
-VLM_LAYERS, MOE_F32_LAYERS = 8, 8
+# so 8 of pixtral-12b's 40 layers run its path at full width.
+# deepseek-moe-16b's paths take its first 8 of 28 layers (its leading
+# dense layer and seven MoE groups): its float32 twin for memory (18.5 GB
+# beside the 32.7 GB of bfloat16 params on the card), its bfloat16 path
+# for time, whose host ``init_params`` of 16.4 B parameters (94 s) paid
+# for the qwen2-7b path and the examples.
+VLM_LAYERS, MOE_LAYERS_DECODE = 8, 8
 REDUCED = {
     "pixtral-12b": {"n_layers": [40, VLM_LAYERS],
                     "why": "the VLM differs from the dense family only in its "
                            "trunk; depth costs the smoke's time, not coverage"},
-    "deepseek-moe-16b/f32": {"n_layers": [28, MOE_F32_LAYERS],
+    "deepseek-moe-16b": {"n_layers": [28, MOE_LAYERS_DECODE],
+                         "why": "the smoke's time: host init_params of 16.4 B "
+                                "parameters took 94 s; width and the MoE "
+                                "groups' routing are unchanged"},
+    "deepseek-moe-16b/f32": {"n_layers": [28, MOE_LAYERS_DECODE],
                              "why": "its float32 params (18.5 GB) beside the "
                                     "bfloat16 ones (32.7 GB) on the card"},
 }
 
 
+# Depths at which a bfloat16 prefill through the kernels is held to one
+# through the plain versions within PLAIN_ULPS (the first n layers of the
+# full params)
+DEPTH_SWEEP = {"qwen2-7b": (2, 7)}
+
+
+def depth_sweep(cfg, params, depths, t_start: float) -> dict:
+    """The prefill's last logits through the kernels against the plain
+    versions' on the first n layers of ``params``, for each n of
+    ``depths``, in bfloat16 ulps at the plain logits' largest magnitude,
+    each within PLAIN_ULPS.  Outside the launch counts.  Raises past the
+    bound; returns the emitted line."""
+    from repro_torch.launch import steps
+    prompt = make_prompt(cfg)
+    B, P = prompt["tokens"].shape[0], trunk_len(prompt)
+    ulps = {}
+    for n in depths:
+        cut, p = first_layers(cfg, params, n)
+        got, want = (steps.build_prefill_step(cut)(
+            p, prompt, steps.init_cache(cut, B, P, DEVICE), plain=plain)[0][:, -1].float()
+            for plain in (False, True))
+        ulps[n] = float((got - want).abs().max()) / bf16_ulp(want)
+    res = {"phase": "decode_path", "path": f"{cfg.name}/depth_sweep",
+           "t": time.perf_counter() - t_start, "function": cfg.name,
+           "prefill_kernel_vs_plain_ulps": ulps, "plain_ulps": PLAIN_ULPS}
+    emit(res)
+    off = {n: u for n, u in ulps.items() if u > PLAIN_ULPS}
+    if off:
+        raise AssertionError(f"{cfg.name}: prefill through the kernels vs plain, "
+                             f"ulps by depth {off} (bound {PLAIN_ULPS})")
+    return res
+
+
 def phase_decode_paths(t_start: float) -> dict:
-    """olmo-1b with a bfloat16 and an int8 KV cache; zamba2-1.2b, rwkv6-7b
-    and deepseek-moe-16b each in bfloat16 and as a float32 twin (the MoE
-    one of its first ``MOE_F32_LAYERS`` layers); pixtral-12b (its first
-    ``VLM_LAYERS`` layers) and seamless-m4t-medium in bfloat16; full width,
-    from numpy seed 0.  Returns launches summed over the paths."""
+    """olmo-1b with a bfloat16 and an int8 KV cache; qwen2-7b, zamba2-1.2b,
+    rwkv6-7b and deepseek-moe-16b (its first ``MOE_LAYERS_DECODE``) each
+    in bfloat16 and as a float32 twin, qwen2-7b's bfloat16 prefill also at
+    ``DEPTH_SWEEP``'s depths; pixtral-12b (its first ``VLM_LAYERS``
+    layers) and seamless-m4t-medium in bfloat16; full width, from numpy
+    seed 0.  Returns launches summed over the paths."""
     import dataclasses
 
     import torch
@@ -1800,25 +2024,28 @@ def phase_decode_paths(t_start: float) -> dict:
     from repro_torch.launch import steps
     total: dict[str, int] = {}
     # (function, depth cut, ((label, KV cache dtype, steps, float32 twin,
-    #  logits held, first layers only), ...))
+    #  runs the logits are held to), ...))
+    both = ("teacher", "plain")
     for function, depth, paths in (
             ("olmo-1b", None,
-             (("olmo-1b", "bfloat16", DECODE_STEPS, False, True, None),
-              ("olmo-1b/int8", "int8", INT8_STEPS, False, True, None))),
+             (("olmo-1b", "bfloat16", DECODE_STEPS, False, both),
+              ("olmo-1b/int8", "int8", INT8_STEPS, False, both))),
             ("zamba2-1.2b", None,
-             (("zamba2-1.2b", "bfloat16", DECODE_STEPS, False, False, None),
-              ("zamba2-1.2b/f32", "bfloat16", F32_STEPS, True, True, None))),
+             (("zamba2-1.2b", "bfloat16", DECODE_STEPS, False, ()),
+              ("zamba2-1.2b/f32", "bfloat16", F32_STEPS, True, both))),
             ("rwkv6-7b", None,
-             (("rwkv6-7b", "bfloat16", DECODE_STEPS, False, False, None),
-              ("rwkv6-7b/f32", "bfloat16", F32_STEPS, True, True, None))),
-            ("deepseek-moe-16b", None,
-             (("deepseek-moe-16b", "bfloat16", DECODE_STEPS, False, False, None),
-              ("deepseek-moe-16b/f32", "bfloat16", F32_STEPS, True, True,
-               MOE_F32_LAYERS))),
+             (("rwkv6-7b", "bfloat16", DECODE_STEPS, False, ()),
+              ("rwkv6-7b/f32", "bfloat16", F32_STEPS, True, both))),
+            ("qwen2-7b", None,
+             (("qwen2-7b", "bfloat16", DECODE_STEPS, False, ("teacher",)),
+              ("qwen2-7b/f32", "bfloat16", F32_STEPS, True, both))),
+            ("deepseek-moe-16b", MOE_LAYERS_DECODE,
+             (("deepseek-moe-16b", "bfloat16", DECODE_STEPS, False, ()),
+              ("deepseek-moe-16b/f32", "bfloat16", F32_STEPS, True, both))),
             ("pixtral-12b", VLM_LAYERS,
-             (("pixtral-12b", "bfloat16", DECODE_STEPS, False, True, None),)),
+             (("pixtral-12b", "bfloat16", DECODE_STEPS, False, both),)),
             ("seamless-m4t-medium", None,
-             (("seamless-m4t-medium", "bfloat16", DECODE_STEPS, False, True, None),))):
+             (("seamless-m4t-medium", "bfloat16", DECODE_STEPS, False, both),))):
         base = ARCHS[function]
         if depth is not None:
             base = dataclasses.replace(base, n_layers=depth)
@@ -1829,16 +2056,14 @@ def phase_decode_paths(t_start: float) -> dict:
             sync()
         emit({**line, "seconds": time.perf_counter() - t0,
               "params": sum(t.numel() for t in _leaves(params))})
-        for label, kvd, n_steps, float32, held, layers in paths:
-            cfg, p = dataclasses.replace(base, kv_cache_dtype=kvd), params
-            if layers is not None:
-                cfg, p = moe_first_layers(cfg, params, layers)
-            res = run_decode_path(label, cfg, p, n_steps, t_start,
-                                  float32=float32, held=held)
+        for label, kvd, n_steps, float32, held in paths:
+            res = run_decode_path(label, dataclasses.replace(base, kv_cache_dtype=kvd),
+                                  params, n_steps, t_start, float32=float32, held=held)
             for k, n in res["launches"].items():
                 total[k] = total.get(k, 0) + n
-            del p
             torch.cuda.empty_cache()
+        if function in DEPTH_SWEEP:
+            depth_sweep(base, params, DEPTH_SWEEP[function], t_start)
         del params
         torch.cuda.empty_cache()
     return total
@@ -2842,6 +3067,9 @@ def main() -> int:
     finally:
         shutil.rmtree(store, ignore_errors=True)
     torch.cuda.empty_cache()
+    examples_launches = phase_examples_path(t_start)
+    emit({"phase": "launch_counts", "path": "examples",
+          "kernel_launches": examples_launches})
     reset_launches()
     moe_launches = phase_moe_invocation(t_start)
     emit({"phase": "launch_counts", "path": "moe_invocation",
@@ -2852,7 +3080,8 @@ def main() -> int:
     emit({"phase": "launch_counts", "path": "train", "kernel_launches": train_launches})
     scan_launches = phase_scan_train_paths(t_start)
     emit({"phase": "launch_counts", "path": "train_scans", "kernel_launches": scan_launches})
-    launches = {k: n + fleet_launches.get(k, 0) + moe_launches.get(k, 0)
+    launches = {k: n + fleet_launches.get(k, 0) + examples_launches.get(k, 0)
+                + moe_launches.get(k, 0)
                 + decode_launches.get(k, 0) + train_launches.get(k, 0)
                 + scan_launches.get(k, 0) for k, n in launches.items()}
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,

@@ -55,6 +55,8 @@ class Trainer:
         self.preempt_at = preempt_at
         self.step_fn = steps_lib.build_train_step(cfg, opt, remat=loop.remat)
         self.restore_stats: dict | None = None
+        #: the losses of the last ``run``, also when a preemption cut it
+        self.losses: list[float] = []
 
     def _fresh_state(self, seed: int = 0):
         params = steps_lib.init_params(self.cfg, seed, self.device)
@@ -72,7 +74,7 @@ class Trainer:
 
     def run(self) -> dict:
         params, opt_state, start = self._resume_or_init()
-        losses: list[float] = []
+        losses = self.losses = []
         loader = PrefetchLoader(self.dataset, self.loop.batch_size,
                                 start_step=start)
         t0 = time.perf_counter()

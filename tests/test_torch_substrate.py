@@ -6,6 +6,7 @@ across packages, and the port's independence from JAX: it imports with
 ``jax`` and ``repro`` blocked and names neither in its sources.
 """
 import filecmp
+import glob
 import os
 import re
 import subprocess
@@ -150,7 +151,11 @@ _IMPORT = re.compile(r"^\s*(?:import|from)\s+(jax|repro)(?:\.|\s|$)", re.M)
 
 
 def test_sources_name_no_jax_or_repro_import():
+    """The port, ``chip_smoke.py`` and the port's examples
+    (``examples/torch_*.py``) import neither JAX nor the JAX package."""
     files = [os.path.join(ROOT, "chip_smoke.py")]
+    files += sorted(glob.glob(os.path.join(ROOT, "examples", "torch_*.py")))
+    assert len(files) >= 5              # chip_smoke.py and the four examples
     for d, _, names in os.walk(PORT):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     assert len(files) > 20
