@@ -7,9 +7,10 @@ Phases, one JSON line each (any failure raises and exits non-zero):
 
 1. environment: the card, its power limit (``nvidia-smi``) and versions;
 2. build: every kernel of ``src/repro_torch/csrc`` compiled with ``nvcc``
-   for ``sm_90a`` (into ``build/repro_torch/``), then the scan kernels'
-   and B3's backward kernels' registers, shared memory, spills and
-   tensor-core instructions (the bf16 backward's must have some);
+   for ``sm_90a`` (into ``build/repro_torch/``), then the scan kernels',
+   B3's backward kernels' and B4's kernels' registers, shared memory,
+   spills and tensor-core instructions (the bf16 backward's and B4's bf16
+   route's must have some);
 3. kernel checks: each kernel against its plain PyTorch version on the
    card at the main path's shapes, with its time, the plain version's,
    one library call's (a yardstick the port never calls) and its bound;
@@ -18,7 +19,10 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    backward at zamba2-1.2b's and rwkv6-7b's training shapes (each split
    by the device kernels it launches) and two small float32 shapes each,
    and both at ROADMAP C4's strong decays, every backward also called
-   twice and held bitwise equal;
+   twice and held bitwise equal; B4 at the decode paths' last steps
+   (olmo-1b, zamba2-1.2b, qwen2-7b's G = 7, pixtral-12b's G = 4,
+   seamless's cross cache) with its split count, and two calls held
+   bitwise equal;
 4. main path: full-width olmo-1b served through ``Orchestrator`` and
    ``Router`` -- register, a record request, scale to zero, a single cold
    start, a group restore of two, warm requests -- with the logits held
@@ -150,6 +154,7 @@ DECODE_CASES = [                     # (B, S, H, KV, D, dtype, kv_len or None = 
     (4, 1056, 16, 16, 128, "bfloat16", 1056),   # olmo-1b, the last decode step
     (4, 1056, 32, 32, 64, "bfloat16", 1056),    # zamba2-1.2b, the last decode step
     (4, 1056, 28, 4, 128, "bfloat16", 1056),    # qwen2-7b, the last decode step (G = 7)
+    (4, 2080, 32, 8, 128, "bfloat16", 2080),    # pixtral-12b, the last decode step (G = 4)
     (4, 132, 16, 16, 64, "bfloat16", 128),      # seamless-m4t-medium's cross cache
 ]
 SSD_CASES = [                        # (Bz, L, H, P, N, chunk, x dtype)
@@ -284,9 +289,11 @@ def phase_build() -> None:
           "libraries": {s: str(p.relative_to(ROOT)) for s, p in libs.items()}})
     report = scan_kernel_report(build.build_dir(), libs)
     emit({"phase": "ptxas", "kernels": report})
-    # B3's bfloat16 backward runs on the tensor cores (unknown without cuobjdump)
+    # B3's bfloat16 backward and B4's bfloat16 route run on the tensor
+    # cores (unknown without cuobjdump)
     scalar = [n for n, r in report.items()
-              if "flash_bwd" in n and "_bf16" in n and r["hmma"] == 0]
+              if ("flash_bwd" in n or "decode_split" in n) and "_bf16" in n
+              and r["hmma"] == 0]
     if scalar:
         raise AssertionError(f"no HMMA instruction in {scalar}")
 
@@ -306,13 +313,14 @@ def short_names(mangled: list[str]) -> dict[str, str]:
 
 def scan_kernel_report(out_dir, libs: dict) -> dict:
     """Registers, static shared memory and spills of each scan kernel (B5,
-    B6) and of B3's backward kernels from the build's ``-Xptxas -v`` logs,
+    B6), of B3's backward kernels and of B4's kernels from the build's
+    ``-Xptxas -v`` logs,
     and its HMMA (tensor-core mma) instructions in the built code
     (``cuobjdump -sass``; None without the tool)."""
     import re
     seen: dict[str, dict] = {}
     for stem, only in (("mamba2_scan", ""), ("rwkv6_scan", ""),
-                       ("flash_attention", "flash_bwd")):
+                       ("flash_attention", "flash_bwd"), ("decode_attention", "decode_")):
         fn = None
         for ln in (out_dir / f"{stem}.log").read_text().splitlines():
             m = re.search(r"Compiling entry function '(\w+)'", ln)
@@ -559,36 +567,45 @@ def device_profile(fn, calls: int = 10, attempts: int = 3) -> tuple[list[str], f
     raise RuntimeError(f"the profiler caught no device span in {attempts} traces")
 
 
-def device_ms_by_part(fn, parts: dict, calls: int = 3) -> dict:
+def device_ms_by_part(fn, parts: dict, calls: int = 3, attempts: int = 3) -> dict:
     """Device milliseconds a call of ``fn`` by part: ``parts`` maps a part
     to a regular expression its device kernels' names match; a kernel
-    matched by none goes to "other".  One trace of ``calls`` calls."""
+    matched by none goes to "other".  One trace of ``calls`` calls; a
+    trace that caught no device span is taken again, up to ``attempts``
+    traces, as in ``device_profile``."""
     import re
 
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        spans = device_spans(prof)
+        if spans:
+            break
+    else:
+        raise RuntimeError(f"the profiler caught no device span in {attempts} traces")
     out = {part: 0.0 for part in parts}
-    for e in device_spans(prof):
+    for e in spans:
         part = next((p for p, rx in parts.items() if re.search(rx, e.name)), "other")
         out[part] = out.get(part, 0.0) + (e.time_range.end - e.time_range.start) / 1e3 / calls
-    if not any(out.values()):
-        raise RuntimeError("the profiler caught no device span")
     return out
 
 
 def check_decode(B: int, S: int, H: int, KV: int, D: int, dtype: str,
                  kv_len: int | None) -> dict:
-    """gqa_decode against its plain version (and SDPA as the yardstick)."""
+    """gqa_decode against its plain version (and SDPA as the yardstick),
+    and a second call against the first, byte for byte
+    (``deterministic``); the split count the wrapper chose."""
     import numpy as np
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention import gqa_decode, gqa_decode_ref
+    from repro_torch.kernels.decode_attention.ops import n_splits
     rng = np.random.default_rng(S * 100 + H)
     tdt = getattr(torch, dtype)
 
@@ -608,9 +625,15 @@ def check_decode(B: int, S: int, H: int, KV: int, D: int, dtype: str,
         return F.scaled_dot_product_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             attn_mask=mask, enable_gqa=H != KV)
-    out = gqa_decode(q, k, v, lens_d)
+
+    def kernel():
+        return gqa_decode(q, k, v, lens_d)
+    out = kernel()
+    again = kernel()
     ref = plain()
     torch.cuda.synchronize()
+    # a fixed order of sums and no atomics: the same bytes twice
+    same_bytes = torch.equal(out.view(torch.uint8), again.view(torch.uint8))
     err = float((out.float() - ref.float()).abs().max())
     atol = DECODE_ATOL.get(dtype) or KERNEL_ULPS * bf16_ulp(ref.float())
     keys = int(lens.sum())               # the valid rows this data reads
@@ -621,10 +644,11 @@ def check_decode(B: int, S: int, H: int, KV: int, D: int, dtype: str,
     return {"kernel": "decode_attention", "shape": [B, S, H, KV, D],
             "kv_len": lens.tolist(), "dtype": dtype, "max_abs_err": err,
             "max_abs_out": float(ref.float().abs().max()), "atol": atol,
-            "ok": err <= atol,
-            "kernel_ms": cuda_ms(lambda: gqa_decode(q, k, v, lens_d), 50),
+            "ok": err <= atol, "deterministic": same_bytes,
+            "n_split": n_splits(B, KV, S),
+            "kernel_ms": cuda_ms(kernel, 50),
             "plain_ms": cuda_ms(plain, 20), "library_ms": cuda_ms(library, 20),
-            "kernel_device_ms": device_profile(lambda: gqa_decode(q, k, v, lens_d))[1],
+            "kernel_device_ms": device_profile(kernel)[1],
             "library_kernels": library_kernels,
             "library_device_ms": library_device_ms,
             "bound_ms": b, "bound_by": by}
@@ -923,6 +947,9 @@ def phase_kernel_checks(ws_pages: int) -> dict:
             if not res["ok"]:
                 raise AssertionError(f"{name} {case}: max abs err "
                                      f"{res['max_abs_err']} > {res['atol']}")
+            if res.get("deterministic") is False:
+                raise AssertionError(f"{name} {case}: two calls on the same inputs "
+                                     "gave different bytes")
             if case == row_case:
                 rows[name] = res
     return rows
@@ -1570,7 +1597,7 @@ F32_ATOL = {"hybrid": 0.01, "rwkv": 1e-3,       # zamba2-1.2b, rwkv6-7b
 # in a profiler trace (csrc/*.cu).
 DEVICE_KERNELS = {"flash_attention": ("flash_fwd",),
                   "flash_attention_bwd": ("flash_bwd",),
-                  "decode_attention": ("decode_split", "decode_combine"),
+                  "decode_attention": ("decode_split",),
                   "ssd_scan": ("ssd_chunks", "ssd_step"),
                   "ssd_scan_bwd": ("ssd_bwd",),
                   "wkv6_scan": ("wkv6_chunks", "wkv6_steps"),
@@ -2016,8 +2043,13 @@ def phase_decode_paths(t_start: float) -> dict:
     in bfloat16 and as a float32 twin, qwen2-7b's bfloat16 prefill also at
     ``DEPTH_SWEEP``'s depths; pixtral-12b (its first ``VLM_LAYERS``
     layers) and seamless-m4t-medium in bfloat16; full width, from numpy
-    seed 0.  Returns launches summed over the paths."""
+    seed 0.  Each function's parameters are drawn on the host while the
+    function before it runs its paths, and copied to the card when its
+    turn comes: ``init_params`` is about 115 s of the smoke at these
+    depths, most of it one NumPy stream per leaf that more threads cannot
+    shorten.  Returns launches summed over the paths."""
     import dataclasses
+    from concurrent.futures import ThreadPoolExecutor
 
     import torch
     from repro_torch.configs import ARCHS
@@ -2026,7 +2058,7 @@ def phase_decode_paths(t_start: float) -> dict:
     # (function, depth cut, ((label, KV cache dtype, steps, float32 twin,
     #  runs the logits are held to), ...))
     both = ("teacher", "plain")
-    for function, depth, paths in (
+    plan = (
             ("olmo-1b", None,
              (("olmo-1b", "bfloat16", DECODE_STEPS, False, both),
               ("olmo-1b/int8", "int8", INT8_STEPS, False, both))),
@@ -2045,27 +2077,47 @@ def phase_decode_paths(t_start: float) -> dict:
             ("pixtral-12b", VLM_LAYERS,
              (("pixtral-12b", "bfloat16", DECODE_STEPS, False, both),)),
             ("seamless-m4t-medium", None,
-             (("seamless-m4t-medium", "bfloat16", DECODE_STEPS, False, both),))):
-        base = ARCHS[function]
-        if depth is not None:
-            base = dataclasses.replace(base, n_layers=depth)
+             (("seamless-m4t-medium", "bfloat16", DECODE_STEPS, False, both),)))
+    bases = [ARCHS[f] if d is None else dataclasses.replace(ARCHS[f], n_layers=d)
+             for f, d, _ in plan]
+
+    def host_params(function: str, base) -> tuple[dict, dict]:
+        """``init_params`` on the host (the card's values bit for bit: both
+        draw and cast on the host), and its line."""
         t0 = time.perf_counter()
         with host_peak({"phase": "decode_path", "function": function,
                         "step": "init_params", "n_layers": base.n_layers}) as line:
-            params = steps.init_params(base, SEED, DEVICE)
+            params = steps.init_params(base, SEED, "cpu")
+        return params, {**line, "seconds": time.perf_counter() - t0}
+
+    def to_card(tree):
+        if isinstance(tree, dict):
+            return {k: to_card(v) for k, v in tree.items()}
+        return tree.to(DEVICE)
+
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        ahead = pool.submit(host_params, plan[0][0], bases[0])
+        for i, ((function, _, paths), base) in enumerate(zip(plan, bases)):
+            t0 = time.perf_counter()
+            host, line = ahead.result()
+            params = to_card(host)
+            del host
             sync()
-        emit({**line, "seconds": time.perf_counter() - t0,
-              "params": sum(t.numel() for t in _leaves(params))})
-        for label, kvd, n_steps, float32, held in paths:
-            res = run_decode_path(label, dataclasses.replace(base, kv_cache_dtype=kvd),
-                                  params, n_steps, t_start, float32=float32, held=held)
-            for k, n in res["launches"].items():
-                total[k] = total.get(k, 0) + n
+            if i + 1 < len(plan):
+                ahead = pool.submit(host_params, plan[i + 1][0], bases[i + 1])
+            # wait_s: the wait for the draw, then the copy to the card
+            emit({**line, "wait_s": time.perf_counter() - t0,
+                  "params": sum(t.numel() for t in _leaves(params))})
+            for label, kvd, n_steps, float32, held in paths:
+                res = run_decode_path(label, dataclasses.replace(base, kv_cache_dtype=kvd),
+                                      params, n_steps, t_start, float32=float32, held=held)
+                for k, n in res["launches"].items():
+                    total[k] = total.get(k, 0) + n
+                torch.cuda.empty_cache()
+            if function in DEPTH_SWEEP:
+                depth_sweep(base, params, DEPTH_SWEEP[function], t_start)
+            del params
             torch.cuda.empty_cache()
-        if function in DEPTH_SWEEP:
-            depth_sweep(base, params, DEPTH_SWEEP[function], t_start)
-        del params
-        torch.cuda.empty_cache()
     return total
 
 

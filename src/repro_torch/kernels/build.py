@@ -44,7 +44,7 @@ SIGNATURES: dict[str, dict[str, list]] = {
         "flash_attention_bwd": [_P] * 10 + [_I] * 6 + [ctypes.c_float, _I, _P],
     },
     "decode_attention": {
-        "decode_attention": [_P] * 7 + [_I] * 7 + [ctypes.c_float] + [_I64] * 8
+        "decode_attention": [_P] * 8 + [_I] * 7 + [ctypes.c_float] + [_I64] * 8
                             + [_P],
     },
     "mamba2_scan": {

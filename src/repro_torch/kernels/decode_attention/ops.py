@@ -3,10 +3,11 @@
 Takes the model's layout, as the JAX wrapper ``ops.gqa_decode`` does: one
 query token (B, 1, H, D) over a cache (B, S, KV, D).  The kernel reads the
 cache through its strides, so no transposed copy is made (the JAX wrapper
-moves the cache's axes on every call).  A CPU tensor runs the plain
-version in ``ref``; a CUDA tensor launches the kernel or raises, and so
-does one that requires grad while grad is enabled (the kernel has no
-backward: decode runs under no grad).
+moves the cache's axes on every call); a bfloat16 cache's rows must start
+on 16-byte boundaries.  A CPU tensor runs the plain version in ``ref``; a
+CUDA tensor launches the kernel or raises, and so does one that requires
+grad while grad is enabled (the kernel has no backward: decode runs under
+no grad).
 """
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ import math
 
 import torch
 
-from ..build import check, count_launch, library, refuse_grad
+from ..build import aligned16, check, count_launch, library, refuse_grad
 from .ref import gqa_decode_ref
 
 HEAD_DIMS = (32, 64, 80, 128)
@@ -22,15 +23,46 @@ MAX_GROUP = 8                         # query heads per KV head the kernel takes
 #: (q dtype, cache dtype) the kernel takes -> its code
 _DTYPES = {(torch.float32, torch.float32): 0, (torch.bfloat16, torch.bfloat16): 1,
            (torch.float32, torch.bfloat16): 2}
-_TARGET_CTAS = 264                    # two per SM on the H100's 132 SMs
-_MIN_KEYS_PER_SPLIT = 64
+KEYS_PER_TILE = 64                    # kTile in csrc/decode_attention.cu
+MAX_SPLITS = 128                      # kMaxSplits there
+# At most two CTAs an SM, all in one wave: the bf16 route's registers (177
+# a thread at D = 128) keep two CTAs of 128 threads an SM on the H100's 132
+# SMs, and a call with a few CTAs past a whole count an SM waits on the SMs
+# that hold them (PERF.md: the split sweep).
+_RESIDENT_CTAS = 264
+_MIN_TILES = 2                        # whole tiles a range at least
+#: per (device index, CUDA stream): the kernel's int32 counters, one per
+#: (b, KV head), zero between calls (the kernel's last CTA of a pair resets
+#: its own); calls on one stream run one after another, so never share one
+_COUNTERS: dict[tuple[int, int], torch.Tensor] = {}
 
 
 def n_splits(B: int, KV: int, S: int) -> int:
-    """KV-sequence splits (flash decoding): enough CTAs to fill the card,
-    each with at least ``_MIN_KEYS_PER_SPLIT`` keys to walk."""
-    want = -(-_TARGET_CTAS // max(B * KV, 1))
-    return max(1, min(want, S // _MIN_KEYS_PER_SPLIT))
+    """Key ranges per (b, KV head) (flash decoding): as many as keep the
+    B * KV * n_split CTAs within two an SM, with ranges of at least
+    ``_MIN_TILES`` whole tiles of ``KEYS_PER_TILE`` keys (more, shorter
+    ranges cost the merge more than they save); one where B * KV fills
+    the card alone or the cache is short."""
+    tiles = -(-S // KEYS_PER_TILE)
+    return max(1, min(_RESIDENT_CTAS // max(B * KV, 1), tiles // _MIN_TILES, MAX_SPLITS))
+
+
+def split_ranges(kv_len: int, n_split: int) -> list[tuple[int, int]]:
+    """Keys ``[lo, hi)`` of each range, as the kernel's ``split_range``
+    deals them: the valid prefix's whole tiles in ``n_split`` consecutive
+    runs that differ by at most one tile."""
+    tiles = -(-kv_len // KEYS_PER_TILE)
+    return [(min(kv_len, i * tiles // n_split * KEYS_PER_TILE),
+             min(kv_len, (i + 1) * tiles // n_split * KEYS_PER_TILE))
+            for i in range(n_split)]
+
+
+def _counters(device: torch.device, n: int) -> torch.Tensor:
+    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
+    buf = _COUNTERS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = _COUNTERS[key] = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+    return buf
 
 
 def gqa_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -71,6 +103,9 @@ def gqa_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"most {MAX_GROUP} query heads per KV head; got D={D}, G={G}")
     if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError("gqa_decode: the head dim must be contiguous")
+    if code == 1 and not (aligned16(k) and aligned16(v)):
+        raise ValueError("gqa_decode: a bfloat16 cache's rows must be 16-byte "
+                         "aligned (the kernel copies 16-byte vectors)")
     out = torch.empty((B, 1, H, D), dtype=q.dtype, device=q.device)
     if out.numel() == 0 or S == 0:
         return out.zero_()
@@ -82,6 +117,7 @@ def gqa_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         rc = library("decode_attention").decode_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
             out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(),
+            _counters(q.device, B * KV).data_ptr(),
             B, S, H, KV, D, splits, code, 1.0 / math.sqrt(D),
             q.stride(0), q.stride(2), k.stride(0), k.stride(1), k.stride(2),
             v.stride(0), v.stride(1), v.stride(2),

@@ -28,6 +28,8 @@ from repro_torch.configs import SMOKES  # noqa: E402
 from repro_torch.convert import params_from_numpy  # noqa: E402
 from repro_torch.kernels import LAUNCHES, gqa_decode  # noqa: E402
 from repro_torch.kernels.decode_attention import gqa_decode_ref  # noqa: E402
+from repro_torch.kernels.decode_attention.ops import (  # noqa: E402
+    KEYS_PER_TILE, MAX_SPLITS, n_splits, split_ranges)
 from repro_torch.launch import steps  # noqa: E402
 from repro_torch.nn import spec  # noqa: E402
 from repro_torch.nn.layers import _quant_kv, chunked_attention  # noqa: E402
@@ -43,6 +45,12 @@ DECODE_SHAPES = [                     # tests/test_kernels.py:44-48 (B,S,H,KV,D)
     (2, 1024, 8, 2, 64),
     (1, 2048, 4, 4, 128),
     (3, 512, 16, 2, 80),
+    # the configs' GQA widths at D = 128 and a short cache: G = 7 (qwen2-7b),
+    # 5 (llama4-maverick), 4 (pixtral-12b, mistral-nemo-12b), 8 (qwen1.5-110b)
+    (2, 96, 28, 4, 128),
+    (2, 96, 40, 8, 128),
+    (2, 96, 32, 8, 128),
+    (2, 96, 64, 8, 128),
 ]
 PROMPT, STEPS, B = 21, 3, 2
 
@@ -272,6 +280,30 @@ def test_positions_past_kv_len_are_left_out():
         assert torch.equal(gqa_decode(q, k2, v2, kv_len), base)
 
 
+@pytest.mark.parametrize("S", [1, 63, 64, 1056, 2080])
+@pytest.mark.parametrize("B_,KV", [(4, 4), (4, 8), (4, 16), (1, 1)])
+def test_split_ranges_cover_the_prefix_once(B_, KV, S):
+    """The kernel's key ranges (``split_ranges`` mirrors its
+    ``split_range``) at the wrapper's split count and others: for every
+    valid length up to S, consecutive, each starting on a tile, within one
+    tile of each other in length, together [0, kv_len) exactly once."""
+    chosen = n_splits(B_, KV, S)
+    assert 1 <= chosen <= min(-(-S // KEYS_PER_TILE), MAX_SPLITS)
+    for n in {chosen, 1, 3, 17}:
+        for kv_len in {0, 1, 63, 64, S}:
+            if kv_len > S:
+                continue
+            ranges = split_ranges(kv_len, n)
+            assert len(ranges) == n
+            covered = []
+            for lo, hi in ranges:
+                assert lo <= hi and (lo == hi or lo % KEYS_PER_TILE == 0)
+                covered.extend(range(lo, hi))
+            assert covered == list(range(kv_len)), (n, kv_len)
+            tiles = [-(-(hi - lo) // KEYS_PER_TILE) for lo, hi in ranges]
+            assert max(tiles) - min(tiles) <= 1, (n, kv_len, tiles)
+
+
 def test_gqa_decode_rejects_bad_input():
     q = torch.zeros(2, 1, 4, 32)
     k = torch.zeros(2, 16, 2, 32)
@@ -319,6 +351,12 @@ def test_serve_cli_runs_on_cpu(tmp_path, capsys):
 CUDA_DECODE = [(*s, "float32", "float32") for s in DECODE_SHAPES] + [
     (4, 1056, 16, 16, 128, "bfloat16", "bfloat16"),   # olmo-1b decode
     (4, 1056, 32, 32, 64, "bfloat16", "bfloat16"),    # zamba2-1.2b decode
+    (4, 1056, 28, 4, 128, "bfloat16", "bfloat16"),    # qwen2-7b decode (G = 7)
+    (4, 2080, 32, 8, 128, "bfloat16", "bfloat16"),    # pixtral-12b decode (G = 4)
+    # every head dim the bf16 kernel is built for: D = 64, 128, 80, and the
+    # GQA widths G = 7, 5, 4, 8 at D = 128
+    *[(*s, "bfloat16", "bfloat16") for s in DECODE_SHAPES],
+    (2, 300, 8, 2, 32, "bfloat16", "bfloat16"),       # D = 32
     (2, 300, 8, 2, 64, "float32", "bfloat16"),        # float32 q, bf16 cache
 ]
 
@@ -352,3 +390,93 @@ def test_cuda_decode_reads_a_strided_cache(cuda):
     assert not k_perm.is_contiguous()
     for kk in (stacked[1], k_perm):
         torch.testing.assert_close(gqa_decode(q, kk, v, kv_len), want, atol=1e-6, rtol=0)
+
+
+def _bf16_ulps(got, want) -> float:
+    """The largest error in bfloat16 ulps at the output's largest magnitude."""
+    top = float(want.float().abs().max())
+    return float((got.float() - want.float()).abs().max()) / 2.0 ** (math.floor(math.log2(top)) - 7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_cuda_decode_valid_lengths(cuda, dtype):
+    """kv_len 0 gives zeros (as the TPU kernel does); 1, a tile's 63 and 64,
+    and S are held to the plain version, in one ragged batch at G = 7."""
+    S = 300
+    q, k, v, _ = (torch.from_numpy(a).to(cuda, getattr(torch, dtype))
+                  for a in _decode_inputs(6, S, 28, 4, 128, seed=8))
+    kv_len = torch.tensor([0, 1, 63, 64, S, 0], dtype=torch.int32, device=cuda)
+    out = gqa_decode(q, k, v, kv_len)
+    assert torch.equal(out[0], torch.zeros_like(out[0]))
+    assert torch.equal(out[5], torch.zeros_like(out[5]))
+    ref = gqa_decode_ref(q[1:5], k[1:5], v[1:5], kv_len[1:5])
+    if dtype == "float32":
+        torch.testing.assert_close(out[1:5], ref, atol=2e-5, rtol=0)
+    else:
+        assert _bf16_ulps(out[1:5], ref) <= 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 2, 3, 7, 16])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_cuda_decode_any_split_count(cuda, monkeypatch, n, dtype):
+    """Any split count merges to the plain version's result: one range
+    (normalised in place), ranges left empty by short rows, and more
+    ranges than tiles."""
+    from repro_torch.kernels.decode_attention import ops
+    q, k, v, kv_len = (torch.from_numpy(a).to(cuda) for a in _decode_inputs(3, 500, 28, 4, 128,
+                                                                            seed=10))
+    q, k, v = (t.to(getattr(torch, dtype)) for t in (q, k, v))
+    kv_len[0] = 5
+    monkeypatch.setattr(ops, "n_splits", lambda *_: n)
+    out = gqa_decode(q, k, v, kv_len)
+    ref = gqa_decode_ref(q, k, v, kv_len)
+    if dtype == "float32":
+        torch.testing.assert_close(out, ref, atol=2e-5, rtol=0)
+    else:
+        assert _bf16_ulps(out, ref) <= 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4, 1056, 28, 4, 128), (2, 300, 8, 8, 64),
+                                   (3, 200, 16, 2, 80)])
+def test_cuda_decode_bf16_is_deterministic(cuda, shape):
+    """No atomics and a fixed order of sums: two calls give the same bytes."""
+    q, k, v, kv_len = (torch.from_numpy(a).to(cuda) for a in _decode_inputs(*shape, seed=9))
+    q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+    a = gqa_decode(q, k, v, kv_len)
+    b = gqa_decode(q, k, v, kv_len)
+    assert torch.equal(a.view(torch.uint16), b.view(torch.uint16))
+
+
+@pytest.mark.cuda
+def test_cuda_decode_reads_a_strided_bf16_cache(cuda):
+    """The bf16 route on a layer's slice of a stacked (L, B, S, KV, D) cache,
+    as the model passes it, and on a cache whose KV-head axis is permuted
+    in memory: the same bytes as on the contiguous cache."""
+    q, k, v, kv_len = (torch.from_numpy(a).to(cuda) for a in _decode_inputs(2, 200, 28, 4, 128))
+    q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+    want = gqa_decode(q, k, v, kv_len)
+    stacked_k, stacked_v = torch.stack([k * 0, k, k * 2]), torch.stack([v * 2, v, v * 0])
+    k_perm = k.permute(0, 2, 1, 3).contiguous().permute(0, 2, 1, 3)
+    assert not k_perm.is_contiguous()
+    for kk, vv in ((stacked_k[1], stacked_v[1]), (k_perm, v)):
+        assert torch.equal(gqa_decode(q, kk, vv, kv_len), want)
+
+
+@pytest.mark.cuda
+def test_cuda_decode_rejects_misaligned_bf16_cache(cuda):
+    """The bf16 route copies 16-byte vectors: a cache that starts off a
+    16-byte boundary, or whose rows do, is refused, not read misaligned."""
+    q = torch.zeros(1, 1, 4, 64, dtype=torch.bfloat16, device=cuda)
+    kv_len = torch.ones(1, dtype=torch.int32, device=cuda)
+    base = torch.zeros(1 * 16 * 2 * 64 + 1, dtype=torch.bfloat16, device=cuda)
+    k = base[1:].view(1, 16, 2, 64)
+    assert k.is_contiguous() and k.data_ptr() % 16
+    with pytest.raises(ValueError):
+        gqa_decode(q, k, k, kv_len)
+    wide = torch.zeros(1, 16, 2, 68, dtype=torch.bfloat16, device=cuda)[..., :64]
+    assert wide.stride(2) % 8
+    with pytest.raises(ValueError):
+        gqa_decode(q, wide, wide, kv_len)
