@@ -276,7 +276,6 @@ class RestorePipeline:
         self.connector = connector
         self.clock = clock
         self.registry = TELEMETRY if registry is None else registry
-        self._trace = self.registry.trace("cold_start", base=base)
         self.timings = StageTimings()
         self.gm: GuestMemoryFile | None = None
         self.monitor: Monitor | None = None
@@ -288,11 +287,12 @@ class RestorePipeline:
         self._tail_fetch = None          # () -> (pages, data) full WS
 
     def _span(self, stage: str, t0: float, dur_s: float, **attrs) -> None:
-        """Record one stage span in the cold-start trace.  ``dur_s`` is
+        """Record one stage span in the calling thread's current trace (an
+        invocation's ``acquire``, or a prewarm), if any.  ``dur_s`` is
         always the value just written to ``self.timings`` — StageTimings
         stays the single stage-seconds sink (REP005); the trace only
         mirrors it for per-invocation attribution."""
-        self._trace.add(stage, t0, dur_s, **attrs)
+        self.registry.record(stage, t0, t0 + dur_s, **attrs)
         self.registry.observe(f"restore.{stage}_s", dur_s)
 
     # -- stages ---------------------------------------------------------
@@ -496,12 +496,15 @@ class RestorePipeline:
         self._mark_prefetched(n_total, hit)
 
     def materialize(self, fn) -> None:
-        """Timed post-install residency work (e.g. param materialization)."""
+        """Timed post-install residency work (e.g. param materialization);
+        its span is open while ``fn`` runs, so ``fn``'s own spans nest in
+        it."""
         t0 = self.clock()
-        fn()
-        self.timings.materialize_s = self.clock() - t0
-        self._span("materialize", t0, self.timings.materialize_s)
-        self._trace.finish()             # materialize ends the cold start
+        with self.registry.span("materialize", start_s=t0) as span:
+            fn()
+            self.timings.materialize_s = self.clock() - t0
+            span.stop(t0 + self.timings.materialize_s)
+        self.registry.observe("restore.materialize_s", self.timings.materialize_s)
 
     def _mark_prefetched(self, n_pages: int, hit: bool) -> None:
         # keep the monitor's view consistent so finish() computes the

@@ -14,6 +14,11 @@ come before its token embeddings, so decode positions continue after
 ``plain=True`` runs every kernel's plain version in its stead (see
 :mod:`repro_torch.nn.layers`).
 
+A traced forward (see :mod:`repro_torch.telemetry`) opens ``embed``, a
+``layer`` span per layer (attribute ``i``; the residual adds are its own
+time, the ops of :mod:`repro_torch.nn.layers` its children) and ``head``
+(its ``norm`` and ``logits``).
+
 ``loss`` is the training objective: next-token cross-entropy from the
 final hidden states through :func:`ce_from_hidden`, which never holds the
 (B, S, vocab) logits.  ``remat=True`` recomputes each layer in the
@@ -30,6 +35,9 @@ from torch.utils.checkpoint import checkpoint
 from ..configs.base import ModelConfig
 from ..nn import layers as nn
 from ..nn.spec import TensorSpec, map_leaves
+from ..telemetry import TELEMETRY
+
+_span = TELEMETRY.span
 
 # ---------------------------------------------------------------------------
 # Spec construction
@@ -124,8 +132,9 @@ def _run_layers(cfg: ModelConfig, params: dict, x: torch.Tensor,
                 plain: bool, remat: bool = False) -> torch.Tensor:
     for i in range(cfg.n_layers):
         lc = None if cache is None else layer_slice(cache["kv"], i)
-        x = remat_call(remat and cache is None, _layer_fwd, cfg,
-                       layer_slice(params["layers"], i), x, lc, cache_pos, plain)
+        with _span("layer", i=i):
+            x = remat_call(remat and cache is None, _layer_fwd, cfg,
+                           layer_slice(params["layers"], i), x, lc, cache_pos, plain)
     return x
 
 
@@ -144,18 +153,21 @@ def embed_tokens(params: dict, batch: dict) -> torch.Tensor:
 def _trunk_in(cfg: ModelConfig, params: dict, batch: dict) -> torch.Tensor:
     """A prompt's embeddings: the VLM's ``patch_embeds`` (moved to the
     params' device, in the activations' dtype) before its tokens'."""
-    x = embed_tokens(params, batch)
-    if cfg.family == "vlm" and "patch_embeds" in batch:
-        pe = torch.as_tensor(batch["patch_embeds"]).to(x.device, x.dtype)
-        x = torch.cat([pe, x], dim=1)
+    with _span("embed"):
+        x = embed_tokens(params, batch)
+        if cfg.family == "vlm" and "patch_embeds" in batch:
+            pe = torch.as_tensor(batch["patch_embeds"]).to(x.device, x.dtype)
+            x = torch.cat([pe, x], dim=1)
     return x
 
 
 def _logits(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
-    x = nn.apply_norm(cfg.norm, params.get("ln_f"), x)
-    if cfg.tied_embeddings:
-        return torch.einsum("bsd,vd->bsv", x, params["embed"]["table"])
-    return nn.apply_lm_head(params["lm_head"], x)
+    with _span("head"):
+        x = nn.apply_norm(cfg.norm, params.get("ln_f"), x)
+        with _span("logits"):
+            if cfg.tied_embeddings:
+                return torch.einsum("bsd,vd->bsv", x, params["embed"]["table"])
+            return nn.apply_lm_head(params["lm_head"], x)
 
 
 def forward(cfg: ModelConfig, params: dict, batch: dict, *,

@@ -18,6 +18,12 @@ runs the flash kernel without its causal mask; a decode step's
 cross-attention over a cache with a valid length runs the decode kernel.
 ``plain=True`` runs the kernels' plain versions instead, on either device:
 that is how a run on the card is held to the plain versions.
+
+Where a thread has a trace current (span recording on, see
+:mod:`repro_torch.telemetry`), the norms, the attention's ``qkv``,
+``rope``, ``attention`` and ``attn_out`` and the MLP's ``mlp_in``, ``act``
+and ``mlp_out`` each open a span, so a device trace's kernels can be
+charged to the op that launched them; otherwise each is a shared no-op.
 """
 from __future__ import annotations
 
@@ -29,7 +35,10 @@ import torch.nn.functional as F
 
 from ..kernels.decode_attention import gqa_decode, gqa_decode_ref
 from ..kernels.flash_attention import mha, mha_ref
+from ..telemetry import TELEMETRY
 from .spec import tensor
+
+_span = TELEMETRY.span
 
 # ---------------------------------------------------------------------------
 # Norms
@@ -58,10 +67,11 @@ def apply_nonparam_ln(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
 
 
 def apply_norm(kind: str, p: dict | None, x: torch.Tensor) -> torch.Tensor:
-    if kind == "rmsnorm":
-        return apply_rmsnorm(p, x)
-    if kind == "nonparam_ln":
-        return apply_nonparam_ln(x)
+    with _span("norm"):
+        if kind == "rmsnorm":
+            return apply_rmsnorm(p, x)
+        if kind == "nonparam_ln":
+            return apply_nonparam_ln(x)
     raise ValueError(f"unknown norm {kind}")
 
 
@@ -246,38 +256,49 @@ def apply_attention(p: dict, x: torch.Tensor, *, rope_theta: float,
     transient first.  ``plain`` runs the kernels' plain versions.
     """
     _, S, _ = x.shape
-    q, k, v = _qkv(p, x)
+    with _span("qkv"):
+        q, k, v = _qkv(p, x)
     head_dim = q.shape[-1]
     base = 0 if cache is None else cache_pos
-    positions = base + torch.arange(S, device=x.device)
-    cos, sin = rope_table(positions, head_dim, rope_theta)
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
-
-    if cache is None:
-        out = _self_attention(q, k, v, chunk=chunk, plain=plain)
-    else:
-        span = slice(cache_pos, cache_pos + S)
-        if "k_scale" in cache:
-            for name, t in (("k", k), ("v", v)):
-                tq, ts = _quant_kv(t)
-                cache[name][:, span] = tq
-                cache[name + "_scale"][:, span] = ts
-            # dequantized views are per-layer transients
-            ck = cache["k"].to(torch.bfloat16) * cache["k_scale"][..., None].to(torch.bfloat16)
-            cv = cache["v"].to(torch.bfloat16) * cache["v_scale"][..., None].to(torch.bfloat16)
-        else:
-            cache["k"][:, span] = k.to(cache["k"].dtype)
-            cache["v"][:, span] = v.to(cache["v"].dtype)
-            ck, cv = cache["k"], cache["v"]
-        if S == 1:
-            out = _decode_attention(q, ck, cv, cache_pos, plain=plain)
-        else:
-            # prefill from position 0: attending over the fresh K/V is the
-            # same as attending over the cache prefix
-            out = _self_attention(q, k, v, chunk=chunk, plain=plain)
-    y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    with _span("rope"):
+        positions = base + torch.arange(S, device=x.device)
+        cos, sin = rope_table(positions, head_dim, rope_theta)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+    with _span("attention"):
+        out = _cached_attention(q, k, v, cache, cache_pos, chunk=chunk,
+                                plain=plain)
+    with _span("attn_out"):
+        y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
     return y, cache
+
+
+def _cached_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      cache: dict | None, cache_pos: int | None, *, chunk: int,
+                      plain: bool) -> torch.Tensor:
+    """:func:`apply_attention`'s attention after RoPE: over the fresh K/V
+    without a cache; with one, the K/V written into it first."""
+    S = q.shape[1]
+    if cache is None:
+        return _self_attention(q, k, v, chunk=chunk, plain=plain)
+    rows = slice(cache_pos, cache_pos + S)
+    if "k_scale" in cache:
+        for name, t in (("k", k), ("v", v)):
+            tq, ts = _quant_kv(t)
+            cache[name][:, rows] = tq
+            cache[name + "_scale"][:, rows] = ts
+        # dequantized views are per-layer transients
+        ck = cache["k"].to(torch.bfloat16) * cache["k_scale"][..., None].to(torch.bfloat16)
+        cv = cache["v"].to(torch.bfloat16) * cache["v_scale"][..., None].to(torch.bfloat16)
+    else:
+        cache["k"][:, rows] = k.to(cache["k"].dtype)
+        cache["v"][:, rows] = v.to(cache["v"].dtype)
+        ck, cv = cache["k"], cache["v"]
+    if S == 1:
+        return _decode_attention(q, ck, cv, cache_pos, plain=plain)
+    # prefill from position 0: attending over the fresh K/V is the
+    # same as attending over the cache prefix
+    return _self_attention(q, k, v, chunk=chunk, plain=plain)
 
 
 def apply_bidirectional_attention(p: dict, x: torch.Tensor, *, rope_theta: float,
@@ -359,7 +380,10 @@ def mlp_spec(d: int, d_ff: int) -> dict:
 
 
 def apply_mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
-    g = torch.einsum("bsd,df->bsf", x, p["wi_gate"])
-    u = torch.einsum("bsd,df->bsf", x, p["wi_up"])
-    h = F.silu(g.float()).to(x.dtype) * u
-    return torch.einsum("bsf,fd->bsd", h, p["wo"])
+    with _span("mlp_in"):
+        g = torch.einsum("bsd,df->bsf", x, p["wi_gate"])
+        u = torch.einsum("bsd,df->bsf", x, p["wi_up"])
+    with _span("act"):
+        h = F.silu(g.float()).to(x.dtype) * u
+    with _span("mlp_out"):
+        return torch.einsum("bsf,fd->bsd", h, p["wo"])

@@ -41,6 +41,7 @@ from ..core.reap import ColdStartReport, StageTimings
 from ..core.restore import RestoreBatch, RestorePipeline
 from ..models import get_family
 from ..nn import spec as nnspec
+from ..telemetry import TELEMETRY
 
 
 class State(enum.Enum):
@@ -192,19 +193,29 @@ class FunctionInstance:
     # ------------------------------------------------------------------
 
     def invoke(self, batch: dict, *, parallel_faults: int = 0):
-        """Process one invocation; first call is cold, later calls warm."""
+        """Process one invocation; first call is cold, later calls warm.
+
+        In a traced invocation the ``forward`` span runs over exactly the
+        reads that time ``processing_s``; its children ``dispatch`` (until
+        the forward returns, every kernel enqueued) and ``sync`` (the wait
+        for the device) tile it."""
         stats = self.monitor.arena.stats
         f0, fs0 = stats.n_faults, stats.fault_seconds
         tw0, tws0 = stats.tail_waits, stats.tail_wait_seconds
         t0 = self.perf_clock()
-        if self._warm_params is not None:
-            logits = ExecutableCache.get(self.cfg)(self._warm_params, batch)
-        else:
-            logits, _ = run_invocation(self.cfg, self.monitor.arena, batch,
-                                       device=self.device,
-                                       parallel=parallel_faults)
-        sync(self.device)
-        dt = self.perf_clock() - t0
+        with TELEMETRY.span("forward", start_s=t0) as forward:
+            with TELEMETRY.span("dispatch", start_s=t0) as dispatch:
+                if self._warm_params is not None:
+                    logits = ExecutableCache.get(self.cfg)(self._warm_params, batch)
+                else:
+                    logits, _ = run_invocation(self.cfg, self.monitor.arena, batch,
+                                               device=self.device,
+                                               parallel=parallel_faults)
+                t_enqueued = dispatch.stop(self.perf_clock())
+            sync(self.device)
+            t1 = forward.stop(self.perf_clock())
+            TELEMETRY.record("sync", t_enqueued, t1)
+        dt = t1 - t0
         first = self._n_invocations == 0
         self._n_invocations += 1
         # fresh per-invocation report; load/connect/prefetch costs belong to
@@ -250,12 +261,15 @@ class FunctionInstance:
         arena entirely."""
         fam = get_family(self.cfg)
         specs = fam.param_specs(self.cfg)
-        self.monitor.arena.touch_pages(
-            sorted(set().union(*[set(self.monitor.arena.layout.pages_of(f"params/{p}"))
-                                 for p, _ in nnspec.tree_paths(specs)])))
-        self._warm_params = nnspec.map_leaves(
-            lambda p, s: self.monitor.arena.tensor(
-                f"params/{p}", fault=False).to(self.device, copy=True), specs)
+        arena = self.monitor.arena
+        pages = sorted(set().union(*[set(arena.layout.pages_of(f"params/{p}"))
+                                     for p, _ in nnspec.tree_paths(specs)]))
+        with TELEMETRY.span("fault", pages=len(pages)):
+            arena.touch_pages(pages)
+        with TELEMETRY.span("copy"):
+            self._warm_params = nnspec.map_leaves(
+                lambda p, s: arena.tensor(
+                    f"params/{p}", fault=False).to(self.device, copy=True), specs)
 
     def finish_cold(self) -> dict:
         if self.monitor.mode == "vanilla":

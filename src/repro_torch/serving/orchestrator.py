@@ -14,6 +14,11 @@ for N instances — parking the extras in the function's *fresh pool* for the
 waiters to claim.  Prewarm bursts take the same path (one group restore per
 ``prewarm`` call instead of n single-instance pipelines).
 
+With span recording on, :meth:`Orchestrator.invoke` opens ``acquire``
+(the restore stages of a cold start nest in it) inside the calling
+thread's current trace, or opens the invocation's root itself when called
+without a router; a prewarm group is a ``prewarm`` trace of its own.
+
 Every public method is thread-safe: the router's worker pool (router.py)
 calls :meth:`invoke` from many threads while the keepalive reaper runs
 concurrently.  Instances move IDLE -> BUSY only via
@@ -33,8 +38,19 @@ from typing import Any
 from ..configs.base import ModelConfig
 from ..core import build_instance_snapshot
 from ..core.reap import ColdStartReport, StageTimings, drop_record
+from ..telemetry import TELEMETRY
 from .config import ServeConfig
 from .instance import FunctionInstance, restore_group
+
+
+def request_attrs(name: str, batch: dict) -> dict:
+    """An invocation trace's attributes: the function and the request's
+    batch, length and token count (where it carries ``tokens``)."""
+    shape = getattr(batch.get("tokens"), "shape", ())
+    if len(shape) != 2:
+        return {"function": name}
+    return {"function": name, "batch": int(shape[0]), "length": int(shape[1]),
+            "tokens": int(shape[0]) * int(shape[1])}
 
 
 class FunctionRecord:
@@ -261,8 +277,9 @@ class Orchestrator:
     def _prewarm_group(self, rec: FunctionRecord, n: int) -> None:
         insts: list[FunctionInstance] = []
         try:
-            insts = self.spawn_batch(rec.name, n, prewarmed=True,
-                                     materialize=True)
+            with TELEMETRY.root("prewarm", function=rec.name, n=n):
+                insts = self.spawn_batch(rec.name, n, prewarmed=True,
+                                         materialize=True)
             if insts[0].monitor.mode == "record":
                 # No WS record existed yet (function was never cold-invoked):
                 # persist one from the pages make_warm just faulted, so REAP
@@ -512,8 +529,16 @@ class Orchestrator:
         invocations — this one included — believed to need cold instances
         right now; a cold start restores that many as one batch.
         """
+        with TELEMETRY.root("invocation", **request_attrs(name, batch)) as tr:
+            logits, report = self._invoke(name, batch, force_cold, group_hint)
+            tr.annotate(cold=report.load_vmm_s > 0)
+        return logits, report
+
+    def _invoke(self, name: str, batch: dict, force_cold: bool,
+                group_hint: int) -> tuple[Any, ColdStartReport]:
         rec = self.functions[name]
-        inst, cold = self._acquire_instance(rec, force_cold, group_hint)
+        with TELEMETRY.span("acquire"):
+            inst, cold = self._acquire_instance(rec, force_cold, group_hint)
         try:
             logits, _ = inst.invoke(
                 batch, parallel_faults=self.reap.parallel_faults)

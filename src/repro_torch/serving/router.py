@@ -18,6 +18,10 @@ in-process.  Architecture:
 Every accepted invocation resolves to an :class:`Invocation` future whose
 report carries the queueing delay (``report.queue_s``) as a first-class
 timing segment next to the paper's load/connect/prefetch/processing split.
+With span recording on (``MetricsRegistry.start_tracing``) each invocation
+is also one trace: an ``invocation`` root from submit to resolve, with its
+``queue`` span (the same two clock reads as ``queue_s``) and, on the
+dispatching worker, everything the orchestrator opens beneath it.
 """
 from __future__ import annotations
 
@@ -29,7 +33,7 @@ from typing import Any
 
 from ..core.reap import ColdStartReport
 from ..telemetry import TELEMETRY
-from .orchestrator import Orchestrator
+from .orchestrator import Orchestrator, request_attrs
 
 
 class AdmissionError(RuntimeError):
@@ -57,11 +61,15 @@ class Invocation:
     """Future for one accepted invocation."""
 
     def __init__(self, name: str, batch: dict, force_cold: bool,
-                 *, clock=time.perf_counter):
+                 *, clock=time.perf_counter, registry=None):
         self.name = name
         self.batch = batch
         self.force_cold = force_cold
         self.t_submit = clock()
+        registry = TELEMETRY if registry is None else registry
+        #: the invocation's span tree (the no-op while recording is off)
+        self.trace = registry.trace("invocation", start_s=self.t_submit,
+                                    **request_attrs(name, batch))
         self.queue_s = 0.0
         self.group_hint = 1              # set at dispatch: cold-group size
         self._done = threading.Event()
@@ -85,10 +93,14 @@ class Invocation:
 
     def _resolve(self, output: Any, report: ColdStartReport) -> None:
         self._output, self._report = output, report
+        self.trace.annotate(cold=report.load_vmm_s > 0)
+        self.trace.finish()
         self._done.set()
 
     def _fail(self, err: BaseException) -> None:
         self._error = err
+        self.trace.annotate(error=type(err).__name__)
+        self.trace.finish()
         self._done.set()
 
 
@@ -139,7 +151,8 @@ class Router:
 
         Raises :class:`AdmissionError` when the function's backlog is full.
         """
-        inv = Invocation(name, batch, force_cold, clock=self.clock)
+        inv = Invocation(name, batch, force_cold, clock=self.clock,
+                         registry=self.registry)
         with self._cv:
             if self._closed:
                 raise RouterClosedError("router is closed")
@@ -290,12 +303,15 @@ class Router:
                     inv = self._next_locked()
                 if inv is None:      # closed and nothing dispatchable
                     return
-            inv.queue_s = self.clock() - inv.t_submit
+            t_dispatch = self.clock()
+            inv.queue_s = t_dispatch - inv.t_submit
             self.registry.observe("router.queue_s", inv.queue_s)
             try:
-                out, rep = self.orch.invoke(inv.name, inv.batch,
-                                            force_cold=inv.force_cold,
-                                            group_hint=inv.group_hint)
+                with self.registry.current(inv.trace):
+                    self.registry.record("queue", inv.t_submit, t_dispatch)
+                    out, rep = self.orch.invoke(inv.name, inv.batch,
+                                                force_cold=inv.force_cold,
+                                                group_hint=inv.group_hint)
                 rep = dataclasses.replace(rep, queue_s=inv.queue_s)
                 inv._resolve(out, rep)
             except BaseException as e:  # propagate to the waiter, keep serving

@@ -1,15 +1,18 @@
-"""Fleet control room: process-wide metrics registry, cold-start trace
-spans, and a periodic stats snapshotter (the JAX package's telemetry,
-copied).
+"""Fleet control room: process-wide metrics registry, per-invocation span
+traces, and a periodic stats snapshotter (the JAX package's telemetry,
+copied; the span traces are the port's own).
 
   emitters -> MetricsRegistry -> StatsSnapshotter -> <out_dir>/*.jsonl
 
 * :class:`MetricsRegistry` — lock-light counters / gauges / fixed-bucket
-  histograms plus a :class:`Trace`/:class:`Span` API for per-invocation
-  cold-start traces.  A process-wide default lives at
-  :data:`repro_torch.telemetry.TELEMETRY`; emitters take ``registry=None`` and
-  fall back to it, and :meth:`MetricsRegistry.disable` turns every
-  emission into a no-op.
+  histograms plus a :class:`Trace`/:class:`Span` recorder: one span tree
+  per invocation (router queue, instance acquire and restore stages, the
+  forward's dispatch and sync, the dense model's ops) and per prewarm.  A
+  process-wide default lives at :data:`repro_torch.telemetry.TELEMETRY`;
+  emitters take ``registry=None`` and fall back to it, and
+  :meth:`MetricsRegistry.disable` turns every metric emission into a
+  no-op.  Span recording is off until
+  :meth:`MetricsRegistry.start_tracing`.
 * :class:`StatsSnapshotter` — samples every registered ``stats()``
   surface on a configurable interval into a JSON-lines time series.
   The clock is injected, so tests drive :meth:`StatsSnapshotter.sample`
