@@ -22,7 +22,10 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    twice and held bitwise equal; B4 at the decode paths' last steps
    (olmo-1b, zamba2-1.2b, qwen2-7b's G = 7, pixtral-12b's G = 4,
    seamless's cross cache) with its split count, and two calls held
-   bitwise equal;
+   bitwise equal; the elementwise kernels (``norm``, ``rope``,
+   ``swiglu``) at olmo-1b's, qwen2-7b's and zamba2-1.2b's widths, RoPE
+   and SwiGLU bitwise equal to their plain versions and the norms within
+   one bfloat16 ulp;
 4. main path: full-width olmo-1b served through ``Orchestrator`` and
    ``Router`` -- register, a record request, scale to zero, a single cold
    start, a group restore of two, warm requests -- with the logits held
@@ -313,14 +316,15 @@ def short_names(mangled: list[str]) -> dict[str, str]:
 
 def scan_kernel_report(out_dir, libs: dict) -> dict:
     """Registers, static shared memory and spills of each scan kernel (B5,
-    B6), of B3's backward kernels and of B4's kernels from the build's
-    ``-Xptxas -v`` logs,
+    B6), of B3's backward kernels, of B4's kernels and of the elementwise
+    kernels from the build's ``-Xptxas -v`` logs,
     and its HMMA (tensor-core mma) instructions in the built code
     (``cuobjdump -sass``; None without the tool)."""
     import re
     seen: dict[str, dict] = {}
     for stem, only in (("mamba2_scan", ""), ("rwkv6_scan", ""),
-                       ("flash_attention", "flash_bwd"), ("decode_attention", "decode_")):
+                       ("flash_attention", "flash_bwd"), ("decode_attention", "decode_"),
+                       ("elementwise", "")):
         fn = None
         for ln in (out_dir / f"{stem}.log").read_text().splitlines():
             m = re.search(r"Compiling entry function '(\w+)'", ln)
@@ -540,6 +544,97 @@ def check_flash_bwd(B: int, S: int, H: int, KV: int, D: int, dtype: str,
            "library_kernels": library_kernels, "library_device_ms": library_device_ms,
            "bound_ms": b, "bound_by": by}
     del plain_out, lib_out, leaves
+    torch.cuda.empty_cache()
+    return res
+
+
+# The elementwise kernels' checks (kernel, function, B, S, dtype), each at
+# its function's widths; the first case of each kernel is its row of the
+# kernel table: a warm-score invocation of 32 documents of 1024 tokens
+ELEMENTWISE_CASES = [
+    ("norm", "olmo-1b", 32, 1024, "bfloat16"),
+    ("rope", "olmo-1b", 32, 1024, "bfloat16"),
+    ("swiglu", "olmo-1b", 32, 1024, "bfloat16"),
+    ("norm", "qwen2-7b", 4, 1024, "bfloat16"),      # RMSNorm with its scale
+    ("rope", "qwen2-7b", 4, 1024, "bfloat16"),      # GQA 28 / 4
+    ("swiglu", "qwen2-7b", 4, 1024, "bfloat16"),
+    ("norm", "zamba2-1.2b", 4, 1, "bfloat16"),      # a decode step
+    ("rope", "zamba2-1.2b", 4, 1, "bfloat16"),      # head_dim 64
+    ("norm", "olmo-1b", 4, 1024, "float32"),
+    ("rope", "olmo-1b", 4, 1024, "float32"),
+    ("swiglu", "olmo-1b", 4, 1024, "float32"),
+]
+
+
+def check_elementwise(kernel: str, function: str, B: int, S: int, dtype: str) -> dict:
+    """One elementwise kernel against its plain version at ``function``'s
+    widths over (B, S) tokens: RoPE and SwiGLU must give the plain
+    version's bytes, a norm each element within one bfloat16 ulp (float32:
+    2e-6 relative), the count of differing elements reported.  Times:
+    kernel, plain and (the non-parametric LN) ``F.layer_norm`` as a
+    yardstick; the bound by bytes read once and written once."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import elementwise as ew
+    from repro_torch.nn.layers import rope_table
+    cfg = ARCHS[function]
+    dt = getattr(torch, dtype)
+    isz = torch.finfo(dt).bits // 8
+    g = torch.Generator(device="cuda").manual_seed(B * S)
+
+    def draw(*shape, scale=1.0, shift=0.0):
+        return (torch.randn(shape, generator=g, device="cuda") * scale + shift).to(dt)
+    library = None
+    if kernel == "norm":
+        d = cfg.d_model
+        x = draw(B, S, d, shift=0.5)
+        shape, n_bytes = [B, S, d], 2 * x.numel() * isz
+        if cfg.norm == "nonparam_ln":
+            run, plain = (lambda: ew.nonparam_ln(x)), (lambda: ew.nonparam_ln_ref(x))
+            library = lambda: F.layer_norm(x, (d,), eps=1e-5)         # noqa: E731
+        else:
+            scale = torch.randn(d, generator=g, device="cuda") * 0.1 + 1.0
+            run, plain = (lambda: ew.rmsnorm(x, scale)), (lambda: ew.rmsnorm_ref(x, scale))
+            n_bytes += 4 * d
+    elif kernel == "rope":
+        H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+        q, k = draw(B, S, H, D, scale=2.0), draw(B, S, KV, D, scale=2.0)
+        cos, sin = rope_table(torch.arange(S, device="cuda") + (1000 if S == 1 else 0),
+                              D, cfg.rope_theta)
+        run = lambda: ew.rope_qk(q, k, cos, sin)                        # noqa: E731
+        plain = lambda: (ew.rope_ref(q, cos, sin), ew.rope_ref(k, cos, sin))  # noqa: E731
+        shape, n_bytes = [B, S, H, KV, D], 2 * (q.numel() + k.numel()) * isz + 2 * cos.numel() * 4
+    else:
+        gate, up = draw(B, S, cfg.d_ff, scale=4.0), draw(B, S, cfg.d_ff)
+        run, plain = (lambda: ew.swiglu(gate, up)), (lambda: ew.swiglu_ref(gate, up))
+        shape, n_bytes = [B, S, cfg.d_ff], 3 * gate.numel() * isz
+    out, ref = run(), plain()
+    pairs = list(zip(out, ref)) if isinstance(out, tuple) else [(out, ref)]
+    torch.cuda.synchronize()
+    exact = all(torch.equal(o, r) for o, r in pairs)
+    differing = sum(int((o != r).sum()) for o, r in pairs)
+    err = max(float((o.float() - r.float()).abs().max()) for o, r in pairs)
+    if kernel != "norm":
+        ok = exact
+    elif dtype == "bfloat16":
+        o, r = out.float(), ref.float()
+        mag = torch.maximum(o.abs(), r.abs()).clamp_min(2.0 ** -126)
+        ulp = torch.clamp(torch.exp2(torch.floor(torch.log2(mag)) - 7), min=2.0 ** -20)
+        ok = not bool(((o - r).abs() > ulp).any())
+    else:
+        ok = bool(torch.allclose(out, ref, rtol=2e-6, atol=2e-6))
+    del pairs, out, ref
+    b, by = bound_ms(n_bytes, 0, dtype)
+    fns = {"kernel_ms": run, "plain_ms": plain}
+    if library is not None:
+        fns["library_ms"] = library
+    ms = cuda_ms_in_turns(fns, 20)
+    names, device_ms = device_profile(run)
+    res = {"kernel": kernel, "function": function, "shape": shape, "dtype": dtype,
+           "ok": ok, "bitwise": exact, "differing": differing, "max_abs_err": err,
+           "library_ms": None, **ms, "kernel_device_ms": device_ms,
+           "device_kernels": names, "bound_ms": b, "bound_by": by}
     torch.cuda.empty_cache()
     return res
 
@@ -933,6 +1028,15 @@ def phase_kernel_checks(ws_pages: int) -> dict:
                                      "gave different bytes")
             if case == cases[0]:
                 rows[name] = res
+    for case in ELEMENTWISE_CASES:
+        res = check_elementwise(*case)
+        emit({"phase": "kernel_check", **res})
+        if not res["ok"]:
+            raise AssertionError(f"{case}: the kernel differs from its plain version "
+                                 f"({res['differing']} elements, max abs err "
+                                 f"{res['max_abs_err']}; rope and swiglu must be "
+                                 "bitwise, a norm within one bfloat16 ulp)")
+        rows.setdefault(case[0], res)
     res = check_scan_bwd_strong_decay()
     emit(res)
     if not res["ok"]:
@@ -1264,7 +1368,8 @@ def phase_fleet_path(cfg, device: str, store: str, batch: dict, main_res: dict,
     then three warm requests through ``ClosedLoopGenerator``.  Cold and
     warm logits are held bitwise to the main path's, the non-owner must
     show a remote fetch with bytes on the wire, and each child's
-    ``flash_attention`` launches must be n_layers per forward it served.
+    ``flash_attention`` launches must be n_layers and its elementwise ones
+    ``eager_per_pass`` per forward it served.
     Returns the children's launch counts, summed."""
     import torch
     from repro_torch.cluster import ScheduleConfig, build_fleet
@@ -1356,10 +1461,11 @@ def phase_fleet_path(cfg, device: str, store: str, batch: dict, main_res: dict,
         got = ns["kernel_launches"]
         line(step="launch_counts", node=node, forwards=served.get(node, 0),
              kernel_launches=got)
-        if got["flash_attention"] != cfg.n_layers * served.get(node, 0):
-            raise AssertionError(f"{node}: flash_attention launched "
-                                 f"{got['flash_attention']} times, want {cfg.n_layers} "
-                                 f"x {served.get(node, 0)} forwards")
+        per_forward = {"flash_attention": cfg.n_layers, **eager_per_pass(cfg)}
+        for k, per in per_forward.items():
+            if got[k] != per * served.get(node, 0):
+                raise AssertionError(f"{node}: {k} launched {got[k]} times, want {per} "
+                                     f"x {served.get(node, 0)} forwards")
         for k, n in got.items():
             launches[k] = launches.get(k, 0) + n
     if any(parent.values()):
@@ -1384,12 +1490,13 @@ QUICK_FORWARDS = 4                   # deploy warm-up, record, warm, REAP cold
 def forward_launches(forwards: dict, groups: int = 0) -> dict:
     """The launches of ``forwards`` ({SMOKE config: forwards run}) without
     a cache and of ``groups`` group restores: B3 ``flash_per_pass``, B6 one
-    per Mamba layer and B5 one per RWKV layer each forward, B1 one per
-    group (its fused WS gather), and no other kernel; with each sum
-    written out."""
+    per Mamba layer, B5 one per RWKV layer and the elementwise kernels
+    ``eager_per_pass`` each forward, B1 one per group (its fused WS
+    gather), and no other kernel; with each sum written out."""
     want, terms = {"gather_pages": groups}, {"gather_pages": f"{groups} groups"}
+    eager = [(k, lambda cfg, k=k: eager_per_pass(cfg)[k]) for k in ("norm", "rope", "swiglu")]
     for kernel, per in (("flash_attention", flash_per_pass), ("ssd_scan", mamba_layers),
-                        ("wkv6_scan", rwkv_layers)):
+                        ("wkv6_scan", rwkv_layers), *eager):
         parts = [(cfg.name, per(cfg), n) for cfg, n in forwards.items() if per(cfg)]
         want[kernel] = sum(p * n for _, p, n in parts)
         terms[kernel] = " + ".join(f"{p} x {n} ({name})" for name, p, n in parts) or "0"
@@ -1604,7 +1711,7 @@ DEVICE_KERNELS = {"flash_attention": ("flash_fwd",),
                   "wkv6_scan_bwd": ("wkv6_bwd",)}
 F32_KERNEL_ATOL = {"flash_attention": FLASH_ATOL["float32"],
                    "decode_attention": DECODE_ATOL["float32"], "ssd_scan": SSD_ATOL,
-                   "wkv6_scan": 1.2e-5}
+                   "wkv6_scan": 1.2e-5, "norm": 2e-6, "rope": 2e-6, "swiglu": 2e-6}
 
 
 def flash_per_pass(cfg) -> int:
@@ -1615,6 +1722,29 @@ def flash_per_pass(cfg) -> int:
     if cfg.family == "encdec":
         return (cfg.n_enc_layers or cfg.n_layers) + cfg.n_layers
     return cfg.n_layers if cfg.family in ("dense", "vlm", "moe") else 0
+
+
+def eager_per_pass(cfg, encoder: bool = True) -> dict:
+    """The elementwise kernels' launches of one forward, prefill or decode
+    step (``encoder=False``: a decode step, which runs no encoder): a
+    ``norm`` per norm (a Mamba2 layer's gated one too), a ``rope`` per
+    self-attention (q and k in one launch) and a ``swiglu`` per SwiGLU MLP
+    (an MoE layer's shared expert; its routed experts' gate is plain)."""
+    L = cfg.n_layers
+    if cfg.family == "hybrid":
+        groups = L // cfg.attn_every
+        return {"norm": 2 * L + 2 * groups + 1, "rope": groups, "swiglu": groups}
+    if cfg.family == "rwkv":
+        return {"norm": 3 * L + 2, "rope": 0, "swiglu": 0}
+    if cfg.family == "encdec":
+        enc = (cfg.n_enc_layers or L) if encoder else 0
+        return {"norm": 2 * enc + int(encoder) + 3 * L + 1, "rope": enc + L,
+                "swiglu": enc + L}
+    swiglu = L
+    if cfg.family == "moe":
+        groups = (L - cfg.first_dense) // cfg.moe_every
+        swiglu = L - groups + (groups if cfg.n_shared_experts else 0)
+    return {"norm": 2 * L + 1, "rope": L, "swiglu": swiglu}
 
 
 def decode_per_step(cfg) -> int:
@@ -1633,11 +1763,12 @@ def rwkv_layers(cfg) -> int:
 
 @contextlib.contextmanager
 def kernels_held_to_plain():
-    """Within the block, each call the models make to B3, B4, B5 or B6 also
-    runs the kernel's plain version on the same inputs (before the caller
+    """Within the block, each call the models make to B3, B4, B5, B6 or an
+    elementwise kernel also runs the kernel's plain version on the same inputs (before the caller
     writes any state in place).  Yields ``{kernel: {"calls", "max_abs_err",
     "worst_err_over_atol"}}``, filled as the calls come."""
     import torch
+    from repro_torch.kernels import elementwise as ew
     from repro_torch.kernels.decode_attention import gqa_decode_ref
     from repro_torch.kernels.flash_attention import mha_ref
     from repro_torch.kernels.mamba2_scan import ssd_scan_ref
@@ -1648,7 +1779,12 @@ def kernels_held_to_plain():
     sites = [(layers, "mha", mha_ref, "flash_attention"),
              (layers, "gqa_decode", gqa_decode_ref, "decode_attention"),
              (mamba2, "ssd_scan", ssd_scan_ref, "ssd_scan"),
-             (rwkv6, "wkv6", wkv6_ref, "wkv6_scan")]
+             (rwkv6, "wkv6", wkv6_ref, "wkv6_scan"),
+             (layers, "rmsnorm", ew.rmsnorm_ref, "norm"),
+             (layers, "nonparam_ln", ew.nonparam_ln_ref, "norm"),
+             (layers, "rope_qk", lambda q, k, c, s: (ew.rope_ref(q, c, s),
+                                                     ew.rope_ref(k, c, s)), "rope"),
+             (layers, "swiglu", ew.swiglu_ref, "swiglu")]
 
     def held(kernel, plain, name):
         def call(*args, **kw):
@@ -1908,9 +2044,11 @@ def run_decode_path(label: str, cfg, params, n_steps: int, t_start: float, *,
     # plain version on the same inputs (outside the count)
     with kernels_held_to_plain() as per_call:
         generate(cfg, params, prompt, 1, forced=run["fed"], float32=float32)
+    prefill_eager, step_eager = eager_per_pass(cfg), eager_per_pass(cfg, encoder=False)
     want_calls = {"flash_attention": flash_per_pass(cfg),
                   "decode_attention": decode_per_step(cfg),
-                  "ssd_scan": 2 * mamba_layers(cfg), "wkv6_scan": 2 * rwkv_layers(cfg)}
+                  "ssd_scan": 2 * mamba_layers(cfg), "wkv6_scan": 2 * rwkv_layers(cfg),
+                  **{k: prefill_eager[k] + step_eager[k] for k in prefill_eager}}
     calls = {k: n for k, n in want_calls.items() if n}
     if {k: r["calls"] for k, r in per_call.items()} != calls:
         raise AssertionError(f"{label}: held kernel calls {per_call}, want {calls}")
@@ -1918,6 +2056,8 @@ def run_decode_path(label: str, cfg, params, n_steps: int, t_start: float, *,
             "decode_attention": decode_per_step(cfg) * n_steps,
             "ssd_scan": mamba_layers(cfg) * (1 + n_steps + 1),    # prefill, steps, forward
             "wkv6_scan": rwkv_layers(cfg) * (1 + n_steps + 1),
+            **{k: 2 * prefill_eager[k] + n_steps * step_eager[k]   # prefill, steps, forward
+               for k in prefill_eager},
             "gather_pages": 0, "scatter_pages": 0, "flash_attention_bwd": 0,
             "ssd_scan_bwd": 0, "wkv6_scan_bwd": 0}
     if launches != want:
@@ -2938,10 +3078,11 @@ def phase_moe_invocation(t_start: float) -> dict:
             if len(routed) != n_groups or faulted != want:
                 raise AssertionError(f"moe_invocation {seed}: {len(faulted)} expert pages "
                                      f"faulted, the routed experts have {len(want)}")
-            if launches["flash_attention"] != cfg.n_layers or any(
-                    n for k, n in launches.items() if k != "flash_attention"):
+            want_launches = {k: 0 for k in launches}
+            want_launches.update(flash_attention=cfg.n_layers, **eager_per_pass(cfg))
+            if launches != want_launches:
                 raise AssertionError(f"moe_invocation {seed}: launches {launches}, want "
-                                     f"{cfg.n_layers} flash_attention")
+                                     f"{want_launches}")
             runs.append({"seed": seed, "batch": batch, "logits": logits,
                          "routed": routed, "pages": faulted})
         a, b = runs
@@ -3057,6 +3198,10 @@ def kernel_table(rows: dict, launches: dict) -> list[dict]:
         # chunked scans
         "ssd_scan_bwd": (src + "mamba2_scan.cu", "src/repro/models/mamba2.py:84"),
         "wkv6_scan_bwd": (src + "rwkv6_scan.cu", "src/repro/models/rwkv6.py:106"),
+        # no TPU kernel: XLA fuses the JAX package's chains of these ops
+        "norm": (src + "elementwise.cu", "src/repro/nn/layers.py:28,37"),
+        "rope": (src + "elementwise.cu", "src/repro/nn/layers.py:91"),
+        "swiglu": (src + "elementwise.cu", "src/repro/nn/layers.py:330"),
     }
     out = []
     for name, (source, replaces) in meta.items():
@@ -3111,6 +3256,10 @@ def main() -> int:
             raise AssertionError(f"flash_attention launched "
                                  f"{launches['flash_attention']} times, want "
                                  f"{cfg.n_layers} x {n_forwards} forwards")
+        for k, per in eager_per_pass(cfg).items():
+            if launches[k] != per * n_forwards:
+                raise AssertionError(f"{k} launched {launches[k]} times, want {per} x "
+                                     f"{n_forwards} forwards")
         emit({"phase": "launch_counts", "path": "serving", "kernel_launches": launches,
               "forwards": n_forwards})
         phase_fuse_engines(main_res["base"])

@@ -51,6 +51,11 @@ SIGNATURES: dict[str, dict[str, list]] = {
         "ssd_scan": [_P] * 8 + [_I] * 5 + [_I64] * 3 + [_I, _P],
         "ssd_scan_bwd": [_P] * 19 + [_I] * 5 + [_I64] * 3 + [_I, _P],
     },
+    "elementwise": {
+        "norm_rows": [_P, _P, _P, _I64, _I, _I64, _I, _I, ctypes.c_float, _P],
+        "rope_qk": [_P] * 6 + [_I] * 6 + [_I64] * 7 + [_P],
+        "swiglu": [_P, _P, _P, _I64, _I, _I64, _I64, _I, _P],
+    },
     "rwkv6_scan": {
         "wkv6_scan": [_P] * 8 + [_I] * 4 + [_I64] * 12 + [_I, _P],
         "wkv6_scan_bwd": [_P] * 17 + [_I] * 4 + [_I64] * 12 + [_I, _P],
@@ -68,7 +73,8 @@ last_build_seconds: float | None = None
 LAUNCHES: dict[str, int] = {"gather_pages": 0, "scatter_pages": 0,
                             "flash_attention": 0, "flash_attention_bwd": 0,
                             "decode_attention": 0, "ssd_scan": 0, "ssd_scan_bwd": 0,
-                            "wkv6_scan": 0, "wkv6_scan_bwd": 0}
+                            "wkv6_scan": 0, "wkv6_scan_bwd": 0,
+                            "norm": 0, "rope": 0, "swiglu": 0}
 _COUNT_LOCK = threading.Lock()
 
 
@@ -182,12 +188,13 @@ def refuse_grad(name: str, *tensors) -> None:
     kernel's output would carry no ``grad_fn``, and every gradient upstream
     of it would go silently missing.  (CPU tensors take the plain version,
     which autograd differentiates.)  Decode and the page install run under
-    no grad, so their kernels (B4, B1, B2) have no backward by design."""
+    no grad, so their kernels (B4, B1, B2) have no backward by design; the
+    elementwise kernels have none yet, and ``nn.layers`` runs their plain
+    versions wherever a graph is built."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise KernelError(
-            f"{name} has no backward kernel (decode and the page install run "
-            "under no grad): call it under torch.no_grad() or with inputs that "
-            "do not require grad")
+            f"{name} has no backward kernel: call it under torch.no_grad() or "
+            "with inputs that do not require grad")
 
 
 def check(rc: int, what: str) -> None:

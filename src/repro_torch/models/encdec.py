@@ -96,11 +96,12 @@ def encode(cfg: ModelConfig, params: dict, frames, plain: bool = False) -> torch
     for i in range(n_enc_layers(cfg)):
         lp = layer_slice(params["enc_layers"], i)
         h = nn.apply_bidirectional_attention(
-            lp["attn"], nn.apply_rmsnorm(lp["ln1"], x), rope_theta=cfg.rope_theta,
-            chunk=cfg.attn_chunk, plain=plain)
+            lp["attn"], nn.apply_rmsnorm(lp["ln1"], x, plain=plain),
+            rope_theta=cfg.rope_theta, chunk=cfg.attn_chunk, plain=plain)
         x = x + h
-        x = x + nn.apply_mlp(lp["mlp"], nn.apply_rmsnorm(lp["ln2"], x))
-    return nn.apply_rmsnorm(params["ln_enc"], x)
+        x = x + nn.apply_mlp(lp["mlp"], nn.apply_rmsnorm(lp["ln2"], x, plain=plain),
+                             plain=plain)
+    return nn.apply_rmsnorm(params["ln_enc"], x, plain=plain)
 
 
 def _cross_kv(lp: dict, enc_out: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -116,14 +117,15 @@ def _cross_attend(cfg, lp, x, enc_k, enc_v, enc_len=None, plain=False):
 
 def _dec_layer(cfg, lp, x, enc_kv, self_cache=None, pos=None, enc_len=None,
                plain=False):
-    h = nn.apply_rmsnorm(lp["ln1"], x)
+    h = nn.apply_rmsnorm(lp["ln1"], x, plain=plain)
     h, _ = nn.apply_attention(lp["self_attn"], h, rope_theta=cfg.rope_theta,
                               cache=self_cache, cache_pos=pos, chunk=cfg.attn_chunk,
                               plain=plain)
     x = x + h
-    h = nn.apply_rmsnorm(lp["ln_x"], x)
+    h = nn.apply_rmsnorm(lp["ln_x"], x, plain=plain)
     x = x + _cross_attend(cfg, lp, h, enc_kv[0], enc_kv[1], enc_len, plain)
-    return x + nn.apply_mlp(lp["mlp"], nn.apply_rmsnorm(lp["ln2"], x))
+    return x + nn.apply_mlp(lp["mlp"], nn.apply_rmsnorm(lp["ln2"], x, plain=plain),
+                            plain=plain)
 
 
 def _dec_run(cfg, params, batch, enc_out, cache=None, pos=None, enc_len=None,
@@ -142,13 +144,14 @@ def _dec_run(cfg, params, batch, enc_out, cache=None, pos=None, enc_len=None,
     return x
 
 
-def _logits(params: dict, x: torch.Tensor) -> torch.Tensor:
-    return nn.apply_lm_head(params["lm_head"], nn.apply_rmsnorm(params["ln_f"], x))
+def _logits(params: dict, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
+    return nn.apply_lm_head(params["lm_head"],
+                            nn.apply_rmsnorm(params["ln_f"], x, plain=plain))
 
 
 def forward(cfg, params, batch, *, plain: bool = False) -> torch.Tensor:
     enc_out = encode(cfg, params, batch["frames"], plain)
-    return _logits(params, _dec_run(cfg, params, batch, enc_out, plain=plain))
+    return _logits(params, _dec_run(cfg, params, batch, enc_out, plain=plain), plain)
 
 
 def prefill(cfg, params, batch, cache, *, plain: bool = False):
@@ -163,12 +166,12 @@ def prefill(cfg, params, batch, cache, *, plain: bool = False):
         cc["v"][:, :n_frames] = v.to(cc["v"].dtype)
     cache["enc_len"].fill_(n_frames)
     x = _dec_run(cfg, params, batch, enc_out, cache, 0, n_frames, plain)
-    return _logits(params, x[:, -1:, :]), cache
+    return _logits(params, x[:, -1:, :], plain), cache
 
 
 def decode(cfg, params, cache, batch, pos, *, plain: bool = False):
     x = _dec_run(cfg, params, batch, None, cache, pos, cache["enc_len"], plain)
-    return _logits(params, x), cache
+    return _logits(params, x, plain), cache
 
 
 def loss(cfg, params, batch, *, remat: bool = False, remat_policy=None,

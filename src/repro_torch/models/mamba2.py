@@ -113,7 +113,7 @@ def apply_mamba2(p: dict, x: torch.Tensor, cfg: ModelConfig,
     y, hT = ssd_chunked(xh, dt, A, Bm, Cm, p["D"], h0,
                         chunk=min(128, max(8, L)), plain=plain)
     y = y.reshape(Bsz, L, d_inner).to(x.dtype)
-    y = nn.apply_rmsnorm(p["norm"], y * F.silu(z.float()).to(x.dtype))
+    y = nn.apply_rmsnorm(p["norm"], y * F.silu(z.float()).to(x.dtype), plain=plain)
     out = torch.einsum("ble,ed->bld", y, p["wo"])
     if state is not None:
         state["ssm"].copy_(hT)

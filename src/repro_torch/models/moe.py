@@ -171,7 +171,8 @@ def slot_ranks(flat_idx: torch.Tensor, n_experts: int) -> torch.Tensor:
     return torch.sum(pos * assign, dim=0)
 
 
-def apply_moe_mlp(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def apply_moe_mlp(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
+                  plain: bool = False) -> torch.Tensor:
     B, S, d = x.shape
     T = B * S
     E, k = cfg.n_experts, cfg.top_k
@@ -203,7 +204,7 @@ def apply_moe_mlp(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     y = y.to(x.dtype).reshape(B, S, d)
 
     if "shared" in p:
-        y = y + nn.apply_mlp(p["shared"], x)
+        y = y + nn.apply_mlp(p["shared"], x, plain=plain)
     return y
 
 
@@ -222,28 +223,29 @@ def routed_experts(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 
 def _dense_fwd(cfg, lp, x, cache=None, pos=None, plain=False):
-    h = nn.apply_rmsnorm(lp["ln1"], x)
+    h = nn.apply_rmsnorm(lp["ln1"], x, plain=plain)
     h, _ = nn.apply_attention(lp["attn"], h, rope_theta=cfg.rope_theta,
                               cache=cache, cache_pos=pos, chunk=cfg.attn_chunk,
                               plain=plain)
     x = x + h
-    return x + nn.apply_mlp(lp["mlp"], nn.apply_rmsnorm(lp["ln2"], x))
+    return x + nn.apply_mlp(lp["mlp"], nn.apply_rmsnorm(lp["ln2"], x, plain=plain),
+                            plain=plain)
 
 
 def _moe_attn(cfg, lp, x, cache=None, pos=None, plain=False):
     """An MoE layer up to its MLP: the attention sub-block, and the normed
     activations the router and the experts read."""
-    h = nn.apply_rmsnorm(lp["ln1"], x)
+    h = nn.apply_rmsnorm(lp["ln1"], x, plain=plain)
     h, _ = nn.apply_attention(lp["attn"], h, rope_theta=cfg.rope_theta,
                               cache=cache, cache_pos=pos, chunk=cfg.attn_chunk,
                               plain=plain)
     x = x + h
-    return x, nn.apply_rmsnorm(lp["ln2"], x)
+    return x, nn.apply_rmsnorm(lp["ln2"], x, plain=plain)
 
 
 def _moe_fwd(cfg, lp, x, cache=None, pos=None, plain=False):
     x, h2 = _moe_attn(cfg, lp, x, cache, pos, plain)
-    return x + apply_moe_mlp(lp["moe"], h2, cfg)
+    return x + apply_moe_mlp(lp["moe"], h2, cfg, plain=plain)
 
 
 def _group_fwd(cfg, gp, x, gcache=None, pos=None, plain=False):
@@ -273,17 +275,17 @@ def _run(cfg: ModelConfig, params: dict, x: torch.Tensor, cache: dict | None,
 
 def forward(cfg, params, batch, *, plain: bool = False) -> torch.Tensor:
     x = _run(cfg, params, _trunk_in(cfg, params, batch), None, None, plain)
-    return _logits(cfg, params, x)
+    return _logits(cfg, params, x, plain)
 
 
 def prefill(cfg, params, batch, cache, *, plain: bool = False):
     x = _run(cfg, params, _trunk_in(cfg, params, batch), cache, 0, plain)
-    return _logits(cfg, params, x[:, -1:, :]), cache
+    return _logits(cfg, params, x[:, -1:, :], plain), cache
 
 
 def decode(cfg, params, cache, batch, pos, *, plain: bool = False):
     x = _run(cfg, params, embed_tokens(params, batch), cache, pos, plain)
-    return _logits(cfg, params, x), cache
+    return _logits(cfg, params, x, plain), cache
 
 
 def loss(cfg, params, batch, *, remat: bool = False, remat_policy=None,

@@ -131,7 +131,7 @@ def apply_time_mix(p: dict, x: torch.Tensor, cfg: ModelConfig,
           if state is None else state["wkv"])
     scan = wkv6_ref if plain else wkv6
     y, sT = scan(r, k, v, logw, p["u"], s0, chunk=min(32, max(1, L)))
-    y = nn.apply_rmsnorm(p["ln_x"], y.reshape(B, L, d).to(x.dtype))
+    y = nn.apply_rmsnorm(p["ln_x"], y.reshape(B, L, d).to(x.dtype), plain=plain)
     y = y * F.silu(g.float()).to(x.dtype).reshape(B, L, d)
     out = torch.einsum("blhk,hkd->bld", y.reshape(B, L, H, hd), p["wo"])
     if state is not None:
@@ -157,14 +157,15 @@ def apply_channel_mix(p: dict, x: torch.Tensor, state: torch.Tensor | None = Non
 
 def _layer_fwd(cfg, lp, x, ls, plain):
     tm_state = None if ls is None else {"wkv": ls["wkv"], "shift": ls["tm_shift"]}
-    x = x + apply_time_mix(lp["tm"], nn.apply_rmsnorm(lp["ln1"], x), cfg, tm_state,
+    x = x + apply_time_mix(lp["tm"], nn.apply_rmsnorm(lp["ln1"], x, plain=plain), cfg,
+                           tm_state,
                            plain=plain)
-    return x + apply_channel_mix(lp["cm"], nn.apply_rmsnorm(lp["ln2"], x),
+    return x + apply_channel_mix(lp["cm"], nn.apply_rmsnorm(lp["ln2"], x, plain=plain),
                                  None if ls is None else ls["cm_shift"])
 
 
 def _run(cfg, params, x, cache, plain, remat=False):
-    x = nn.apply_rmsnorm(params["ln_in"], x)
+    x = nn.apply_rmsnorm(params["ln_in"], x, plain=plain)
     for i in range(cfg.n_layers):
         ls = None if cache is None else layer_slice(cache["layers"], i)
         x = remat_call(remat and cache is None, _layer_fwd, cfg,
@@ -174,18 +175,18 @@ def _run(cfg, params, x, cache, plain, remat=False):
 
 def forward(cfg, params, batch, *, plain: bool = False) -> torch.Tensor:
     x = _run(cfg, params, embed_tokens(params, batch), None, plain)
-    return _logits(cfg, params, x)
+    return _logits(cfg, params, x, plain)
 
 
 def prefill(cfg, params, batch, cache, *, plain: bool = False):
     x = _run(cfg, params, embed_tokens(params, batch), cache, plain)
-    return _logits(cfg, params, x[:, -1:, :]), cache
+    return _logits(cfg, params, x[:, -1:, :], plain), cache
 
 
 def decode(cfg, params, cache, batch, pos, *, plain: bool = False):
     del pos  # the state is position-free
     x = _run(cfg, params, embed_tokens(params, batch), cache, plain)
-    return _logits(cfg, params, x), cache
+    return _logits(cfg, params, x, plain), cache
 
 
 def loss(cfg, params, batch, *, remat: bool = False, remat_policy=None,

@@ -96,13 +96,13 @@ def cache_specs(cfg: ModelConfig, batch: int, max_len: int) -> dict:
 
 def _layer_fwd(cfg: ModelConfig, lp: dict, x: torch.Tensor, cache: dict | None,
                cache_pos: int | None, plain: bool) -> torch.Tensor:
-    h = nn.apply_norm(cfg.norm, lp.get("ln1"), x)
+    h = nn.apply_norm(cfg.norm, lp.get("ln1"), x, plain=plain)
     h, _ = nn.apply_attention(lp["attn"], h, rope_theta=cfg.rope_theta,
                               cache=cache, cache_pos=cache_pos,
                               chunk=cfg.attn_chunk, plain=plain)
     x = x + h
-    h = nn.apply_norm(cfg.norm, lp.get("ln2"), x)
-    return x + nn.apply_mlp(lp["mlp"], h)
+    h = nn.apply_norm(cfg.norm, lp.get("ln2"), x, plain=plain)
+    return x + nn.apply_mlp(lp["mlp"], h, plain=plain)
 
 
 def layer_slice(tree, i: int):
@@ -161,9 +161,10 @@ def _trunk_in(cfg: ModelConfig, params: dict, batch: dict) -> torch.Tensor:
     return x
 
 
-def _logits(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
+def _logits(cfg: ModelConfig, params: dict, x: torch.Tensor,
+            plain: bool = False) -> torch.Tensor:
     with _span("head"):
-        x = nn.apply_norm(cfg.norm, params.get("ln_f"), x)
+        x = nn.apply_norm(cfg.norm, params.get("ln_f"), x, plain=plain)
         with _span("logits"):
             if cfg.tied_embeddings:
                 return torch.einsum("bsd,vd->bsv", x, params["embed"]["table"])
@@ -174,7 +175,7 @@ def forward(cfg: ModelConfig, params: dict, batch: dict, *,
             plain: bool = False) -> torch.Tensor:
     """Full scoring forward -> logits (B, S, vocab)."""
     x = _run_layers(cfg, params, _trunk_in(cfg, params, batch), None, None, plain)
-    return _logits(cfg, params, x)
+    return _logits(cfg, params, x, plain)
 
 
 def prefill(cfg: ModelConfig, params: dict, batch: dict, cache: dict, *,
@@ -182,7 +183,7 @@ def prefill(cfg: ModelConfig, params: dict, batch: dict, cache: dict, *,
     """Populate the KV cache from a full prompt (in place); returns the
     last position's logits (B, 1, vocab) and the cache."""
     x = _run_layers(cfg, params, _trunk_in(cfg, params, batch), cache, 0, plain)
-    return _logits(cfg, params, x[:, -1:, :]), cache
+    return _logits(cfg, params, x[:, -1:, :], plain), cache
 
 
 def decode(cfg: ModelConfig, params: dict, cache: dict, batch: dict, pos: int, *,
@@ -191,7 +192,7 @@ def decode(cfg: ModelConfig, params: dict, cache: dict, batch: dict, pos: int, *
     ``pos``, and this step's K/V are written there in place); returns
     logits (B, 1, vocab) and the cache."""
     x = _run_layers(cfg, params, embed_tokens(params, batch), cache, pos, plain)
-    return _logits(cfg, params, x), cache
+    return _logits(cfg, params, x, plain), cache
 
 
 # ---------------------------------------------------------------------------

@@ -66,12 +66,13 @@ def cache_specs(cfg: ModelConfig, batch: int, max_len: int) -> dict:
 
 
 def _shared_block(cfg, sp, x, cache=None, pos=None, plain=False):
-    h = nn.apply_rmsnorm(sp["ln1"], x)
+    h = nn.apply_rmsnorm(sp["ln1"], x, plain=plain)
     h, _ = nn.apply_attention(sp["attn"], h, rope_theta=cfg.rope_theta,
                               cache=cache, cache_pos=pos, chunk=cfg.attn_chunk,
                               plain=plain)
     x = x + h
-    return x + nn.apply_mlp(sp["mlp"], nn.apply_rmsnorm(sp["ln2"], x))
+    return x + nn.apply_mlp(sp["mlp"], nn.apply_rmsnorm(sp["ln2"], x, plain=plain),
+                            plain=plain)
 
 
 def _group(cfg, gp, shared, x, gcache, pos, plain):
@@ -79,7 +80,7 @@ def _group(cfg, gp, shared, x, gcache, pos, plain):
     for j in range(cfg.attn_every):
         lp = layer_slice(gp["mamba"], j)
         st = None if gcache is None else layer_slice(gcache["mamba"], j)
-        h, _ = apply_mamba2(lp["block"], nn.apply_rmsnorm(lp["ln"], x), cfg,
+        h, _ = apply_mamba2(lp["block"], nn.apply_rmsnorm(lp["ln"], x, plain=plain), cfg,
                             state=st, plain=plain)
         x = x + h
     kv = None if gcache is None else gcache["attn_kv"]
@@ -98,17 +99,17 @@ def _run(cfg, params, x, cache, pos, plain, remat=False):
 
 def forward(cfg, params, batch, *, plain: bool = False) -> torch.Tensor:
     x = _run(cfg, params, embed_tokens(params, batch), None, None, plain)
-    return _logits(cfg, params, x)
+    return _logits(cfg, params, x, plain)
 
 
 def prefill(cfg, params, batch, cache, *, plain: bool = False):
     x = _run(cfg, params, embed_tokens(params, batch), cache, 0, plain)
-    return _logits(cfg, params, x[:, -1:, :]), cache
+    return _logits(cfg, params, x[:, -1:, :], plain), cache
 
 
 def decode(cfg, params, cache, batch, pos, *, plain: bool = False):
     x = _run(cfg, params, embed_tokens(params, batch), cache, pos, plain)
-    return _logits(cfg, params, x), cache
+    return _logits(cfg, params, x, plain), cache
 
 
 def loss(cfg, params, batch, *, remat: bool = False, remat_policy=None,

@@ -16,6 +16,10 @@ decode-attention kernel on a CUDA tensor and :func:`chunked_attention`
 with a single chunk on a CPU one.  An encoder's bidirectional attention
 runs the flash kernel without its causal mask; a decode step's
 cross-attention over a cache with a valid length runs the decode kernel.
+The norms, RoPE (q and k in one launch) and the SwiGLU gate run the
+one-pass kernels of :mod:`repro_torch.kernels.elementwise` on CUDA tensors
+where no autograd graph is built (serving, prefill and decode), and their
+plain versions, the eager float32 chains, on the CPU and in training.
 ``plain=True`` runs the kernels' plain versions instead, on either device:
 that is how a run on the card is held to the plain versions.
 
@@ -31,9 +35,10 @@ import math
 from typing import Any
 
 import torch
-import torch.nn.functional as F
 
 from ..kernels.decode_attention import gqa_decode, gqa_decode_ref
+from ..kernels.elementwise import (nonparam_ln, nonparam_ln_ref, rmsnorm, rmsnorm_ref,
+                                   rope_qk, rope_ref, swiglu, swiglu_ref)
 from ..kernels.flash_attention import mha, mha_ref
 from ..telemetry import TELEMETRY
 from .spec import tensor
@@ -49,29 +54,38 @@ def rmsnorm_spec(d: int) -> dict:
     return {"scale": tensor(d, axes=("embed",), dtype="float32", init="ones")}
 
 
-def apply_rmsnorm(p: dict | None, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    xf = x.float()
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
-    y = xf * torch.rsqrt(var + eps)
-    if p is not None:
-        y = y * p["scale"]
-    return y.to(x.dtype)
+def _fused(plain: bool, *tensors: torch.Tensor | None) -> bool:
+    """Whether the one-pass kernels of ``kernels.elementwise`` take these
+    inputs: CUDA tensors outside ``plain``, with no autograd graph to build
+    (the kernels have no backward, so training runs the plain chains)."""
+    return (not plain and tensors[0].is_cuda
+            and not (torch.is_grad_enabled()
+                     and any(t is not None and t.requires_grad for t in tensors)))
 
 
-def apply_nonparam_ln(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+def apply_rmsnorm(p: dict | None, x: torch.Tensor, eps: float = 1e-6, *,
+                  plain: bool = False) -> torch.Tensor:
+    scale = None if p is None else p["scale"]
+    if _fused(plain, x, scale):
+        return rmsnorm(x, scale, eps)
+    return rmsnorm_ref(x, scale, eps)
+
+
+def apply_nonparam_ln(x: torch.Tensor, eps: float = 1e-5, *,
+                      plain: bool = False) -> torch.Tensor:
     """OLMo-style non-parametric LayerNorm (no scale, no bias)."""
-    xf = x.float()
-    mu = torch.mean(xf, dim=-1, keepdim=True)
-    var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
-    return ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype)
+    if _fused(plain, x):
+        return nonparam_ln(x, eps)
+    return nonparam_ln_ref(x, eps)
 
 
-def apply_norm(kind: str, p: dict | None, x: torch.Tensor) -> torch.Tensor:
+def apply_norm(kind: str, p: dict | None, x: torch.Tensor, *,
+               plain: bool = False) -> torch.Tensor:
     with _span("norm"):
         if kind == "rmsnorm":
-            return apply_rmsnorm(p, x)
+            return apply_rmsnorm(p, x, plain=plain)
         if kind == "nonparam_ln":
-            return apply_nonparam_ln(x)
+            return apply_nonparam_ln(x, plain=plain)
     raise ValueError(f"unknown norm {kind}")
 
 
@@ -110,19 +124,14 @@ def rope_table(positions: torch.Tensor, head_dim: int, theta: float) -> tuple:
     return torch.cos(ang), torch.sin(ang)
 
 
-def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
-    """x: (B, S, H, D); cos/sin: (S, D/2) or (B, S, D/2)."""
-    half = x.shape[-1] // 2
-    if cos.dim() == 2:  # (S, half) -> broadcast over batch and heads
-        cos = cos[None, :, None, :]
-        sin = sin[None, :, None, :]
-    else:  # (B, S, half)
-        cos = cos[:, :, None, :]
-        sin = sin[:, :, None, :]
-    xf = x.float()
-    x1, x2 = xf[..., :half], xf[..., half:]
-    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
-    return out.to(x.dtype)
+def apply_rope(q: torch.Tensor, k: torch.Tensor, cos: torch.Tensor,
+               sin: torch.Tensor, *, plain: bool = False) -> tuple:
+    """q: (B, S, H, D), k: (B, S, KV, D); cos/sin: (S, D/2) or (B, S, D/2).
+    Returns the rotated (q, k): one kernel launch for both, or the plain
+    version on each."""
+    if _fused(plain, q, k):
+        return rope_qk(q, k, cos, sin)
+    return rope_ref(q, cos, sin), rope_ref(k, cos, sin)
 
 
 # ---------------------------------------------------------------------------
@@ -263,8 +272,7 @@ def apply_attention(p: dict, x: torch.Tensor, *, rope_theta: float,
     with _span("rope"):
         positions = base + torch.arange(S, device=x.device)
         cos, sin = rope_table(positions, head_dim, rope_theta)
-        q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
+        q, k = apply_rope(q, k, cos, sin, plain=plain)
     with _span("attention"):
         out = _cached_attention(q, k, v, cache, cache_pos, chunk=chunk,
                                 plain=plain)
@@ -308,8 +316,7 @@ def apply_bidirectional_attention(p: dict, x: torch.Tensor, *, rope_theta: float
     q, k, v = _qkv(p, x)
     cos, sin = rope_table(torch.arange(x.shape[1], device=x.device), q.shape[-1],
                           rope_theta)
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
+    q, k = apply_rope(q, k, cos, sin, plain=plain)
     out = _self_attention(q, k, v, chunk=chunk, plain=plain, causal=False)
     return torch.einsum("bshk,hkd->bsd", out, p["wo"])
 
@@ -379,11 +386,11 @@ def mlp_spec(d: int, d_ff: int) -> dict:
     }
 
 
-def apply_mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
+def apply_mlp(p: dict, x: torch.Tensor, *, plain: bool = False) -> torch.Tensor:
     with _span("mlp_in"):
         g = torch.einsum("bsd,df->bsf", x, p["wi_gate"])
         u = torch.einsum("bsd,df->bsf", x, p["wi_up"])
     with _span("act"):
-        h = F.silu(g.float()).to(x.dtype) * u
+        h = swiglu(g, u) if _fused(plain, g, u) else swiglu_ref(g, u, x.dtype)
     with _span("mlp_out"):
         return torch.einsum("bsf,fd->bsd", h, p["wo"])
